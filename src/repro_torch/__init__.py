@@ -1,0 +1,25 @@
+"""PyTorch/CUDA port of the sparse CPD-ALS system in ``repro``.
+
+The main path -- one sparse CP decomposition of one tensor on one device --
+is ``repro_torch.core.cpd.cpd_als`` -> ``core.als_device.cpd_als_fused``.
+Its MTTKRP runs through the hand-written Hopper kernel in
+``csrc/mttkrp_slab.cu`` (the counterpart of the Pallas kernel in
+``repro/kernels/mttkrp_pallas.py``).
+
+Entry points take ``device=`` and default to ``"cuda"``; they raise when
+CUDA is asked for and absent.  ``device="cpu"`` runs every kernel's plain
+PyTorch version instead.  The package imports torch and numpy only.
+"""
+from .core.als_device import cpd_als_fused
+from .core.coo import SparseTensor, frostt_like, low_rank_sparse, random_sparse
+from .core.cpd import CPDResult, cpd_als
+
+__all__ = [
+    "CPDResult",
+    "SparseTensor",
+    "cpd_als",
+    "cpd_als_fused",
+    "frostt_like",
+    "low_rank_sparse",
+    "random_sparse",
+]

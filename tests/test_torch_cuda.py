@@ -1,0 +1,100 @@
+"""The port on the card: the CUDA kernel against its plain version, and the
+main path through the kernel.  Every test here carries the ``cuda``
+marker and skips without a card.  The file imports nothing of JAX, so on
+a machine with the card and without JAX it runs as
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+Tolerance: the kernel and ``index_add_`` sum the same float32 terms in
+another order, so they may differ by a few ulps of each row's absolute
+sum (``sum |val * prod F|``), more where terms cancel.  Outputs are held
+to 1e-5 of the largest absolute sum, as ``chip_smoke.py`` does.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.coo import random_sparse
+from repro_torch.core.cpd import cpd_als
+from repro_torch.core.mttkrp import make_plan
+from repro_torch.kernels import mttkrp_slab as ks
+from repro_torch.kernels.ops import pack_layout
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _factors(shape, R, seed, device, dtype=torch.float32):
+    rng = np.random.default_rng(seed)
+    return [torch.as_tensor(rng.standard_normal((I, R)).astype(np.float32),
+                            device=device).to(dtype) for I in shape]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,rank_block,dtype", [
+    (8, None, torch.float32), (33, 16, torch.float32),
+    (16, None, torch.bfloat16)])
+def test_kernel_matches_plain_on_card(cuda, R, rank_block, dtype):
+    t = random_sparse((257, 63, 5, 9), 5000, seed=18, distribution="powerlaw")
+    F = _factors(t.shape, R, 19, cuda, dtype)
+    plan = make_plan(t, 4, block_rows=16, tile=64, device=cuda)
+    for d in range(t.nmodes):
+        idxp, valsp, lrowsp, rb_of, chunks, _ = plan.device_packed(d)
+        in_f = [F[w] for w in plan.layouts[d].input_modes()]
+        kw = dict(num_row_blocks=plan.packed(d).num_row_blocks,
+                  block_rows=16, tile=64)
+        before = ks.LAUNCHES
+        k = ks.mttkrp_slab(idxp, valsp, lrowsp, rb_of, in_f, chunks=chunks,
+                           rank_block=rank_block, **kw)
+        assert ks.LAUNCHES == before + 1
+        plain = ks.mttkrp_slab_plain(idxp, valsp, lrowsp, rb_of, in_f, **kw)
+        mag = ks.mttkrp_slab_plain(idxp, valsp.abs(), lrowsp, rb_of,
+                                   [f.abs() for f in in_f], **kw)
+        torch.testing.assert_close(k, plain, rtol=0,
+                                   atol=1e-5 * float(mag.max()))
+
+
+@pytest.mark.cuda
+def test_kernel_cap_slabs_are_exact_on_card(cuda):
+    t = random_sparse((100, 40, 20), 3000, seed=5, distribution="powerlaw")
+    F = _factors(t.shape, 8, 6, cuda)
+    lay = make_plan(t, 2, device=cuda).layouts[0]
+    in_f = [F[w] for w in lay.input_modes()]
+    outs = []
+    for cap in (None, 200):
+        p = pack_layout(lay, block_rows=16, tile=32, num_slabs_cap=cap)
+        arrays = [torch.as_tensor(a, device=cuda) for a in (
+            p.idx_packed, p.vals_packed, p.lrows_packed, p.rb_of)]
+        outs.append(ks.mttkrp_slab(
+            *arrays, in_f, chunks=ks.slab_chunks(p.rb_of, p.num_row_blocks, cuda),
+            num_row_blocks=p.num_row_blocks, block_rows=16, tile=32))
+    assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.cuda
+def test_kernel_rejects_bad_inputs(cuda):
+    t = random_sparse((30, 20, 10), 600, seed=1)
+    plan = make_plan(t, 1, block_rows=8, tile=32, device=cuda)
+    idxp, valsp, lrowsp, rb_of, chunks, _ = plan.device_packed(0)
+    F = _factors(t.shape, 4, 2, cuda)
+    kw = dict(chunks=chunks, num_row_blocks=plan.packed(0).num_row_blocks,
+              block_rows=8, tile=32)
+    with pytest.raises(TypeError):
+        ks.mttkrp_slab(idxp, valsp.double(), lrowsp, rb_of, [F[1], F[2]], **kw)
+    with pytest.raises(ValueError):
+        ks.mttkrp_slab(idxp, valsp, lrowsp, rb_of, [F[1], F[2].cpu()], **kw)
+
+
+@pytest.mark.cuda
+def test_main_path_on_card_launches_the_kernel(cuda):
+    t = random_sparse((40, 7, 33, 5), 1500, seed=0, distribution="powerlaw")
+    before = ks.LAUNCHES
+    res = cpd_als(t, 5, backend="slab", n_iters=4, check_every=2, tol=-1.0)
+    assert ks.LAUNCHES - before == 4 * t.nmodes
+    assert res.host_syncs == 3
+    seg = cpd_als(t, 5, backend="segment", n_iters=4, check_every=2, tol=-1.0)
+    np.testing.assert_allclose(res.fits, seg.fits, atol=1e-5)
