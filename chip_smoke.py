@@ -1,15 +1,25 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py          (from the repository root; needs one card)
 
-Builds the port's CUDA kernel from ``src/repro_torch/csrc`` into ``build/``,
-holds it against its plain PyTorch version at the main path's shapes, runs
-sparse CPD-ALS on the chicago-shaped FROSTT stand-in (6186 x 24 x 77 x 32,
-5,330,673 nonzeros, rank 16) through the kernel, checks the result, and
-times the kernel beside its byte bound, its plain version and one PyTorch
-library call.  Prints one JSON line per phase, then the ``{"kernels": ...}``
-line, the card's name and power limit, and last
+Builds the port's CUDA kernel from ``src/repro_torch/csrc`` into ``build/``
+and holds its three entries (value-baked, valued, batched) against their
+plain PyTorch versions at the paths' shapes.  Then it drives, each with
+the launch counts set to 0 just before and read just after:
+
+  main_path -- sparse CPD-ALS on the chicago-shaped FROSTT stand-in
+               (24744 x 24 x 77 x 32, 5,330,673 nonzeros, rank 16);
+  methods   -- ``cpd_als(method="nncp")`` and ``method="masked"`` with
+               seeded observation weights on the same tensor;
+  batched   -- ``BatchedEngine.decompose_batch`` on 8 uber-shaped requests
+               (183 x 24 x 1140 x 1717, 827,372 - 4,096 b nonzeros) for
+               cp, nncp and masked;
+
+checks each against the port's other backends or its sequential engine,
+and times the kernels beside their byte bounds, their plain versions and
+one PyTorch library call.  Prints one JSON line per phase, then the
+``{"kernels": ...}`` line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the script
 then exits non-zero and prints no ``ok`` line.  It imports nothing of JAX.
 """
@@ -26,6 +36,12 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12         # H100 SXM float32 rate outside the tensor cores
 RANK = 16
 TIMED_LAUNCHES = 21
+# The batched phase's bucket: 8 requests of uber's shape, each with the
+# nnz of frostt_like("uber", scale=0.25) less 4096 per lane.
+UBER_SHAPE = (183, 24, 1140, 1717)
+UBER_NNZ = 827_372
+LANES = 8
+METHODS = ("cp", "nncp", "masked")
 
 
 def emit(obj) -> None:
@@ -69,6 +85,124 @@ def low_rank_full(shape, rank, seed):
     dense = np.einsum("ir,jr,kr->ijk", *F)
     idx = np.indices(shape).reshape(len(shape), -1).T.astype(np.int32)
     return SparseTensor(idx, dense.reshape(-1).astype(np.float32), shape)
+
+
+def reset_launches(ks) -> None:
+    for entry in ks.LAUNCHES:
+        ks.LAUNCHES[entry] = 0
+
+
+def observation_weights(np, nnz: int, seed: int):
+    """Seeded confidences from U[0, 1], with 5% of them set to 0."""
+    rng = np.random.default_rng(seed)
+    w = rng.uniform(0.0, 1.0, nnz).astype(np.float32)
+    w[rng.choice(nnz, size=nnz // 20, replace=False)] = 0.0
+    return w
+
+
+def largest_drop(fits) -> float:
+    """How far any fit falls below the one before (0 if none does)."""
+    return max([0.0] + [a - b for a, b in zip(fits, fits[1:])])
+
+
+def fit_gap(np, a, b) -> float:
+    return float(np.max(np.abs(np.array(a) - np.array(b))))
+
+
+def library_mttkrp(torch, np, indices, shape, d, values, in_f):
+    """``torch.sparse.mm`` of the mode-d CSR matricization (``values`` in
+    canonical order) and the dense Khatri-Rao of ``in_f``, as a callable,
+    plus the Khatri-Rao's bytes.  Building either is outside the call."""
+    dev = in_f[0].device
+    idx = torch.as_tensor(indices, device=dev).long()
+    others = [w for w in range(len(shape)) if w != d]
+    cols = torch.zeros(idx.shape[0], dtype=torch.long, device=dev)
+    for w in others:
+        cols = cols * shape[w] + idx[:, w]
+    ncols = int(np.prod([shape[w] for w in others]))
+    order = torch.sparse_coo_tensor(
+        torch.stack([idx[:, d], cols]),
+        torch.arange(idx.shape[0], dtype=torch.float64, device=dev),
+        (shape[d], ncols), check_invariants=False).coalesce()
+    csr = order.to_sparse_csr()
+    vals = torch.as_tensor(values, device=dev)[csr.values().long()]
+    csr = torch.sparse_csr_tensor(csr.crow_indices(), csr.col_indices(), vals,
+                                  (shape[d], ncols))
+    krp = in_f[0]
+    for f in in_f[1:]:
+        krp = (krp[:, None, :] * f[None, :, :]).reshape(-1, f.shape[1])
+    return (lambda: torch.sparse.mm(csr, krp)), krp.numel() * 4
+
+
+def slab_bound(slots, W, chunk_ints, factor_rows, out_rows, value_bytes=None):
+    """The least time of one slab MTTKRP: bytes (each input read once, each
+    output written once) over the card's memory rate, or its float32
+    operations over the float32 rate, whichever is larger.  The inputs are
+    the packed indices and local rows, the values (``value_bytes``;
+    default the packed float32 values), the chunk tables, the factors."""
+    if value_bytes is None:
+        value_bytes = slots * 4
+    nbytes = (slots * (W + 1) * 4 + value_bytes + chunk_ints * 4
+              + factor_rows * RANK * 4 + out_rows * RANK * 4)
+    ops = slots * RANK * (W + 1)
+    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ops = ops / F32_OPS_PER_S * 1e3
+    return {"bound_ms": max(bound_bytes, bound_ops),
+            "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
+            "bytes": nbytes, "ops": ops}
+
+
+def device_idle(torch, fn, clock):
+    """Wall time, device busy time, idle share and top kernels of one
+    ``fn()`` under ``torch.profiler`` (``fn`` has run once before)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = clock.now()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (clock.now() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(
+            e, "self_cuda_time_total", 0.0)
+
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+    top = sorted(kernels, key=dev_us, reverse=True)[:8]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms if kernels else None,
+            "device_idle_share": (1.0 - busy_ms / wall_ms) if kernels else None,
+            "top": [{"name": e.key[:60], "count": e.count, "ms": dev_us(e) / 1e3}
+                    for e in top]}
+
+
+def mttkrp_f64(torch, idx_packed, vals_packed, lrows_packed, rb_of, factors, *,
+               num_row_blocks, block_rows, tile):
+    """The slab kernel's plain arithmetic (``mttkrp_slab_plain``) carried
+    out in float64.  The masked method's residuals correlate with the
+    factors, so a row's terms share a sign and its float32 sums drift
+    with their length: mode 1 of the chicago stand-in sums 222K of them
+    per row, and the float32 plain version's atomic adds then err by more
+    than the kernel's chunked sums.  The valued entry is held against this."""
+    prod = vals_packed[0].double()[:, None]
+    for w, fac in enumerate(factors):
+        prod = prod * fac.double().index_select(0, idx_packed[w].long())
+    rows = (lrows_packed[0].long()
+            + torch.repeat_interleave(rb_of.long(), tile) * block_rows)
+    out = torch.zeros((num_row_blocks * block_rows, prod.shape[1]),
+                      dtype=torch.float64, device=prod.device)
+    return out.index_add_(0, rows, prod)
+
+
+def eng_block(eng, prep, block: int):
+    """The engine's cached window function of ``block`` sweeps for ``prep``."""
+    from repro_torch.serve.batched_engine import _build_batched_block
+
+    return _build_batched_block(eng.backend, len(prep.shape), eng.rank, prep.shape,
+                                prep.cap, prep.batch, eng.solver, block,
+                                prep.slab_meta, prep.method)
 
 
 def main() -> int:
@@ -190,10 +324,10 @@ def main() -> int:
           "cap_slabs": pc.num_slabs - p.num_slabs, "cap_bitwise_equal": cap_equal})
 
     # -- main_path -----------------------------------------------------------
-    ks.LAUNCHES = 0
+    reset_launches(ks)
     res = cpd_als(t, RANK, plan=plan, backend="slab", n_iters=10,
                   check_every=5, device="cuda")
-    launches = ks.LAUNCHES
+    launches = ks.LAUNCHES["mttkrp_slab"]
     check(launches == 40, f"main path launched the kernel {launches} times, not 40")
     check(res.host_syncs == 3, f"host_syncs {res.host_syncs} != 3")
     check(res.iters == 10 and len(res.fits) == 10, "main path did not run 10 sweeps")
@@ -232,53 +366,237 @@ def main() -> int:
           "recovery_shape": [96, 80, 64], "recovery_fit": rec.fits[-1],
           "recovery_iters": rec.iters})
 
+    # -- methods: nncp and masked on the chicago stand-in -------------------
+    from repro_torch.core.coo import SparseTensor
+    from repro_torch.methods import masked, nncp
+
+    mkw = dict(plan=plan, n_iters=10, check_every=5, device="cuda")
+    reset_launches(ks)
+    nn = cpd_als(t, RANK, backend="slab", method="nncp", **mkw)
+    nn_launches = dict(ks.LAUNCHES)
+    check(nn_launches["mttkrp_slab"] == 40,
+          f"nncp launched the kernel {nn_launches['mttkrp_slab']} times, not 40")
+    check(nn.host_syncs == 3, f"nncp host_syncs {nn.host_syncs} != 3")
+    check(all(bool((F >= 0).all()) for F in nn.factors), "nncp factor < 0")
+    check(largest_drop(nn.fits) <= 1e-6, f"nncp fit fell: {nn.fits}")
+    nn_seg = cpd_als(t, RANK, backend="segment", method="nncp", **mkw)
+    nn_gap = fit_gap(np, nn.fits, nn_seg.fits)
+    check(nn_gap <= 1e-5, f"nncp slab fits differ from segment by {nn_gap}")
+
+    w = observation_weights(np, t.nnz, seed=11)
+    reset_launches(ks)
+    mk = cpd_als(t, RANK, backend="slab", method="masked", weights=w, **mkw)
+    mk_launches = dict(ks.LAUNCHES)
+    check(mk_launches["mttkrp_slab_valued"] == 40 and mk_launches["mttkrp_slab"] == 0,
+          f"masked launches {mk_launches}, not 40 valued")
+    check(mk.host_syncs == 3, f"masked host_syncs {mk.host_syncs} != 3")
+    check(largest_drop(mk.fits) <= 1e-6, f"masked fit fell: {mk.fits}")
+    check(all(np.isfinite(F).all() and F.shape == (I, RANK)
+              for F, I in zip(mk.factors, t.shape)), "bad masked factors")
+    mk_seg = cpd_als(t, RANK, backend="segment", method="masked", weights=w, **mkw)
+    mk_gap = fit_gap(np, mk.fits, mk_seg.fits)
+    check(mk_gap <= 1e-5, f"masked slab fits differ from segment by {mk_gap}")
+    keep = w != 0.0
+    t_red = SparseTensor(t.indices[keep], t.values[keep], t.shape)
+    red = cpd_als(t_red, RANK, backend="slab", method="masked", weights=w[keep],
+                  n_iters=10, check_every=5, device="cuda")
+    w0_gap = fit_gap(np, mk.fits, red.fits)
+    check(w0_gap <= 1e-5, f"weight-0 entries differ from absent ones by {w0_gap}")
+
+    # One masked window under sync-debug "error": the valued path queues
+    # without a host read too.
+    smd, smeta = als_device.collect_structural_mode_data(plan, "slab", RANK)
+    mfd = masked.make_fit_data(t, w, dev)
+    mwindow = als_device._build_sweep_block("slab", t.nmodes, RANK, shapes, smeta,
+                                            "cho", 5, "masked")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, mwin_fits, mwin_ok = mwindow(state, smd, mfd)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(bool(mwin_ok), "masked solve flagged in the sync-free window")
+    check(abs(float(mwin_fits[-1]) - mk.fits[4]) <= 1e-5, "masked window fit differs")
+    emit({"phase": "methods", "tensor": "chicago", "rank": RANK, "sweeps": 10,
+          "nncp": {"launches": nn_launches, "host_syncs": nn.host_syncs,
+                   "fits": nn.fits, "segment_fits": nn_seg.fits, "fit_gap": nn_gap,
+                   "largest_drop": largest_drop(nn.fits),
+                   "min_factor": float(min(F.min() for F in nn.factors)),
+                   "total_s": nn.total_seconds},
+          "masked": {"launches": mk_launches, "host_syncs": mk.host_syncs,
+                     "weights": "U[0,1], 5% set to 0, seed 11",
+                     "fits": mk.fits, "segment_fits": mk_seg.fits, "fit_gap": mk_gap,
+                     "largest_drop": largest_drop(mk.fits),
+                     "weight0_vs_absent_gap": w0_gap, "sync_free_window": True,
+                     "total_s": mk.total_seconds}})
+
+    # -- batched: 8 uber-shaped requests through BatchedEngine ------------------
+    from repro_torch.core.coo import random_sparse
+    from repro_torch.serve import BatchedEngine
+
+    t0 = clock.now()
+    lanes = [random_sparse(UBER_SHAPE, UBER_NNZ - 4096 * b, seed=b,
+                           distribution="powerlaw") for b in range(LANES)]
+    lane_w = [observation_weights(np, x.nnz, seed=100 + b)
+              for b, x in enumerate(lanes)]
+    cap = max(x.nnz for x in lanes)
+    eng = BatchedEngine(RANK, backend="slab", check_every=5)
+    bplan = eng.bucket_plan(UBER_SHAPE, cap)
+    seq_plans = [make_plan(x, 1, partition=bplan, device=dev) for x in lanes]
+    gen_s = clock.now() - t0
+
+    # The batched kernel: lane b bitwise the single launch on every mode.
+    prep_cp = eng.prepare_batch(lanes, n_iters=10, seeds=list(range(LANES)))
+    rngb = np.random.default_rng(13)
+    bfac = [torch.as_tensor(rngb.standard_normal((LANES, I, RANK)).astype(np.float32),
+                            device=dev) for I in UBER_SHAPE]
+    lane_equal, batched_modes = True, []
+    for d in range(len(UBER_SHAPE)):
+        idxp, valsp, lrowsp, rb_of, chunks, _ = prep_cp.mode_data_all[d]
+        nrb, br, tile, rblk = prep_cp.slab_meta[d]
+        in_f = [bfac[w] for w in range(len(UBER_SHAPE)) if w != d]
+        kw = dict(num_row_blocks=nrb, block_rows=br, tile=tile)
+        out = ks.mttkrp_slab_batched(idxp, valsp, lrowsp, rb_of, in_f,
+                                     chunks=chunks, rank_block=rblk, **kw)
+        for b in range(LANES):
+            one = ks.mttkrp_slab(
+                idxp[b], valsp[b], lrowsp[b], rb_of[b], [f[b] for f in in_f],
+                chunks=ks.slab_chunks(rb_of[b].cpu().numpy(), nrb, dev),
+                rank_block=rblk, **kw)
+            lane_equal &= bool(torch.equal(out[b], one))
+        plain = ks.mttkrp_slab_batched_plain(idxp, valsp, lrowsp, rb_of, in_f, **kw)
+        mag = ks.mttkrp_slab_batched_plain(idxp, valsp.abs(), lrowsp, rb_of,
+                                           [f.abs() for f in in_f], **kw)
+        torch.cuda.synchronize()
+        err = float((out - plain).abs().max())
+        tol = 1e-5 * float(mag.max())
+        check(err <= tol, f"batched mode {d}: err {err} > tol {tol}")
+        batched_modes.append({"mode": d, "max_abs_err": err, "tol": tol})
+    check(lane_equal, "a batched lane differs from its single launch")
+    del out, plain, mag
+
+    batched = {}
+    preps = {"cp": prep_cp}
+    for method in METHODS:
+        wkw = dict(weights=lane_w) if method == "masked" else {}
+        if method not in preps:
+            preps[method] = eng.prepare_batch(lanes, n_iters=10,
+                                              seeds=list(range(LANES)),
+                                              method=method, **wkw)
+        reset_launches(ks)
+        t0 = clock.now()
+        res_b = eng.execute_prepared(preps[method])
+        run_s = clock.now() - t0
+        b_launches = dict(ks.LAUNCHES)
+        rescued = res_b[0].host_syncs - 3
+        check(b_launches["mttkrp_slab_batched"] == 40 + rescued * 5 * 4
+              and b_launches["mttkrp_slab"] == b_launches["mttkrp_slab_valued"] == 0,
+              f"batched {method} launches {b_launches} with {rescued} rescued windows")
+        check(rescued == 0, f"batched {method}: {rescued} windows reran under the rescue")
+        check(all(r.iters == 10 and np.isfinite(r.fits).all() for r in res_b),
+              f"batched {method} did not run 10 finite sweeps")
+        gaps = []
+        for b, x in enumerate(lanes):
+            seq = cpd_als(x, RANK, plan=seq_plans[b], backend="slab", method=method,
+                          n_iters=10, check_every=5, seed=b, device="cuda",
+                          **({"weights": lane_w[b]} if method == "masked" else {}))
+            gaps.append(fit_gap(np, res_b[b].fits, seq.fits))
+        check(max(gaps) <= 1e-5, f"batched {method} lanes differ from sequential: {gaps}")
+        last = LANES - 1
+        one = eng.decompose_batch([lanes[last]], n_iters=10, seeds=[last], nnz_cap=cap,
+                                  method=method,
+                                  **({"weights": [lane_w[last]]} if method == "masked" else {}))[0]
+        b1_equal = (all(np.array_equal(a, c) for a, c in zip(one.factors, res_b[last].factors))
+                    and np.array_equal(one.weights, res_b[last].weights))
+        check(b1_equal, f"batched {method}: B = 1 and B = {LANES} differ for lane {last}")
+        entry = {"launches": b_launches, "host_syncs": res_b[0].host_syncs,
+                 "rescued_windows": rescued, "fits_lane0": res_b[0].fits,
+                 "max_fit_gap_vs_sequential": max(gaps), "b1_equals_b8": b1_equal,
+                 "execute_s": run_s}
+        if method != "masked":
+            own = eng.decompose_batch([lanes[last]], n_iters=10, seeds=[last],
+                                      nnz_cap=lanes[last].nnz, method=method)[0]
+            pad_equal = (all(np.array_equal(a, c) for a, c in zip(own.factors, one.factors))
+                         and np.array_equal(own.weights, one.weights))
+            check(pad_equal, f"batched {method}: padded and unpadded differ")
+            entry["padded_equals_unpadded"] = pad_equal
+        batched[method] = entry
+    batched_launches = sum(batched[m]["launches"]["mttkrp_slab_batched"] for m in METHODS)
+    emit({"phase": "batched", "shape": list(UBER_SHAPE), "lanes": LANES,
+          "nnz": [x.nnz for x in lanes], "nnz_cap": cap, "rank": RANK, "sweeps": 10,
+          "setup_s": gen_s, "plan": bplan.describe(),
+          "lane_bitwise_single_launch": lane_equal, "kernel_modes": batched_modes,
+          "methods": batched})
+
     # -- times -----------------------------------------------------------------
-    per_mode = []
+    # The value-baked entry on the main path's packings, and the valued
+    # entry on the masked method's residuals (its 5% weight-0 entries give
+    # residuals of exactly +-0.0), per chicago mode.
+    lam = torch.ones(RANK, device=dev)
+    resid = masked.mttkrp_values(None, f16, lam, mfd)
+    per_mode, valued_modes = [], []
     for d in range(t.nmodes):
         idxp, valsp, lrowsp, rb_of, chunks, _ = plan.device_packed(d)
+        _, _, _, _, _, perm, scatter = plan.device_structural(d, "slab")
         p = plan.packed(d)
-        lay = plan.layouts[d]
-        others = lay.input_modes()
+        others = plan.layouts[d].input_modes()
         in_f = [f16[w] for w in others]
         kw = dict(num_row_blocks=p.num_row_blocks, block_rows=p.block_rows,
                   tile=p.tile)
         rb = plan.mode_plan(d, RANK).rank_block
+        slots = p.num_slabs * p.tile
+        chunk_ints = int(chunks.chunk_slab.numel() + chunks.rb_chunk_ptr.numel())
+        factor_rows = sum(t.shape[w] for w in others)
+        out_rows = p.num_row_blocks * p.block_rows
+        bound = slab_bound(slots, len(others), chunk_ints, factor_rows, out_rows)
         ms = cuda_ms(torch, lambda: ks.mttkrp_slab(
             idxp, valsp, lrowsp, rb_of, in_f, chunks=chunks, rank_block=rb, **kw),
             TIMED_LAUNCHES)
         plain_ms = cuda_ms(torch, lambda: ks.mttkrp_slab_plain(
             idxp, valsp, lrowsp, rb_of, in_f, **kw), 5)
-        # Library yardstick: CSR matricization times the dense Khatri-Rao.
-        idx = torch.as_tensor(t.indices, device=dev).long()
-        cols = torch.zeros(t.nnz, dtype=torch.long, device=dev)
-        for w in others:
-            cols = cols * t.shape[w] + idx[:, w]
-        ncols = int(np.prod([t.shape[w] for w in others]))
-        csr = torch.sparse_coo_tensor(
-            torch.stack([idx[:, d], cols]),
-            torch.as_tensor(t.values, device=dev), (t.shape[d], ncols),
-            check_invariants=False).coalesce().to_sparse_csr()
-        krp = in_f[0]
-        for f in in_f[1:]:
-            krp = (krp[:, None, :] * f[None, :, :]).reshape(-1, RANK)
-        library_ms = cuda_ms(torch, lambda: torch.sparse.mm(csr, krp), 5)
-        del csr, krp, idx, cols
-        slots = p.num_slabs * p.tile
-        nbytes = (slots * (len(others) + 2) * 4
-                  + sum(int(c.numel()) * 4 for c in (chunks.chunk_slab, chunks.rb_chunk_ptr))
-                  + sum(t.shape[w] * RANK * 4 for w in others)
-                  + p.num_row_blocks * p.block_rows * RANK * 4)
-        ops = slots * RANK * (len(others) + 1)
-        bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        bound_ops = ops / F32_OPS_PER_S * 1e3
-        per_mode.append({
-            "mode": d, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": max(bound_bytes, bound_ops),
-            "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
-            "bytes": nbytes, "ops": ops})
-    torch.cuda.empty_cache()
+        lib, krp_bytes = library_mttkrp(torch, np, t.indices, t.shape, d,
+                                        t.values, in_f)
+        library_ms = cuda_ms(torch, lib, 5)
+        per_mode.append({"mode": d, "ms": ms, "plain_ms": plain_ms,
+                         "library_ms": library_ms, "library_krp_bytes": krp_bytes,
+                         **bound})
 
-    # Sweep split on the main path's data: MTTKRP, fit, and the rest.
+        v = resid[perm]
+        valued = ks.mttkrp_slab_valued(idxp, v, scatter, lrowsp, rb_of, in_f,
+                                       chunks=chunks, rank_block=rb, **kw)
+        vals_v = ks.scatter_slab_values(v, scatter, slots)
+        plain = ks.mttkrp_slab_plain(idxp, vals_v, lrowsp, rb_of, in_f, **kw)
+        exact = mttkrp_f64(torch, idxp, vals_v, lrowsp, rb_of, in_f, **kw)
+        mag = ks.mttkrp_slab_plain(idxp, vals_v.abs(), lrowsp, rb_of,
+                                   [f.abs() for f in in_f], **kw)
+        torch.cuda.synchronize()
+        err, tol = float((valued - exact).abs().max()), 1e-5 * float(mag.max())
+        plain_err = float((plain - exact).abs().max())
+        check(err <= tol, f"valued mode {d}: err {err} > tol {tol}")
+        del valued, plain, exact, mag, vals_v
+        scatter_ms = cuda_ms(torch, lambda: ks.scatter_slab_values(v, scatter, slots),
+                             TIMED_LAUNCHES)
+        valued_ms = cuda_ms(torch, lambda: ks.mttkrp_slab_valued(
+            idxp, v, scatter, lrowsp, rb_of, in_f, chunks=chunks, rank_block=rb,
+            **kw), TIMED_LAUNCHES)
+        valued_plain_ms = cuda_ms(torch, lambda: ks.mttkrp_slab_plain(
+            idxp, ks.scatter_slab_values(v, scatter, slots), lrowsp, rb_of, in_f,
+            **kw), 5)
+        vlib, _ = library_mttkrp(torch, np, t.indices, t.shape, d, resid, in_f)
+        valued_modes.append({
+            "mode": d, "ms": valued_ms, "scatter_ms": scatter_ms,
+            "kernel_ms": valued_ms - scatter_ms, "plain_ms": valued_plain_ms,
+            "library_ms": cuda_ms(torch, vlib, 5), "max_abs_err": err, "tol": tol,
+            "plain_f32_err": plain_err,
+            # the values (nnz float32) and their slots (nnz int64) replace
+            # the packed values among the inputs
+            **slab_bound(slots, len(others), chunk_ints, factor_rows, out_rows,
+                         value_bytes=t.nnz * 12)})
+        del lib, vlib
+        torch.cuda.empty_cache()
+
+    # Sweep split on the main path's data: MTTKRP, fit, and the rest; the
+    # per-sweep update tails of cp and nncp (HALS) on the same MTTKRPs.
     one = als_device._build_one_mttkrp("slab", t.nmodes, shapes, meta)
     fit_fn = als_device._build_sparse_fit(t.nmodes, RANK)
     one_sweep = als_device._build_sweep_block("slab", t.nmodes, RANK, shapes,
@@ -288,48 +606,112 @@ def main() -> int:
                                         for d in range(t.nmodes)], 5)
     fit_ms = cuda_ms(torch, lambda: fit_fn(st[0], st[1], st[2], fit_data), 5)
     sweep_ms = cuda_ms(torch, lambda: one_sweep(st, mode_data, fit_data), 5)
+    ctx = als_device.make_sweep_context("slab", t.nmodes, RANK, shapes, meta, "cho")
+    Ms = [one(d, mode_data[d], st[0]) for d in range(t.nmodes)]
 
-    from torch.profiler import ProfilerActivity, profile
+    def tail(update):
+        return lambda: [update(ctx, d, Ms[d], list(st[0]), list(st[1]), st[2], False)
+                        for d in range(t.nmodes)]
+
+    hals_ms = cuda_ms(torch, tail(nncp.update), 5)
+    cp_tail_ms = cuda_ms(torch, tail(als_device.cp_update), 5)
+    nn_sweep = als_device._build_sweep_block("slab", t.nmodes, RANK, shapes, meta,
+                                             "cho", 1, "nncp")
+    nn_sweep_ms = cuda_ms(torch, lambda: nn_sweep(st, mode_data, fit_data), 5)
+    mk_sweep = als_device._build_sweep_block("slab", t.nmodes, RANK, shapes, smeta,
+                                             "cho", 1, "masked")
+    mk_sweep_ms = cuda_ms(torch, lambda: mk_sweep(st, smd, mfd), 5)
     two_sweeps = als_device._build_sweep_block("slab", t.nmodes, RANK, shapes,
                                                meta, "cho", 2)
     two_sweeps(st, mode_data, fit_data)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = clock.now()
-        two_sweeps(st, mode_data, fit_data)
-        torch.cuda.synchronize()
-        wall_ms = (clock.now() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    profile = device_idle(torch, lambda: two_sweeps(st, mode_data, fit_data), clock)
+    del Ms
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(
-            e, "self_cuda_time_total", 0.0)
+    # The batched entry per uber mode at B = 8, beside 8 torch.sparse.mm.
+    batched_times = []
+    for d in range(len(UBER_SHAPE)):
+        idxp, valsp, lrowsp, rb_of, chunks, _ = prep_cp.mode_data_all[d]
+        nrb, br, tile, rblk = prep_cp.slab_meta[d]
+        others = [w for w in range(len(UBER_SHAPE)) if w != d]
+        in_f = [bfac[w] for w in others]
+        kw = dict(num_row_blocks=nrb, block_rows=br, tile=tile)
+        slots = int(idxp.shape[-1])
+        ms = cuda_ms(torch, lambda: ks.mttkrp_slab_batched(
+            idxp, valsp, lrowsp, rb_of, in_f, chunks=chunks, rank_block=rblk, **kw),
+            TIMED_LAUNCHES)
+        plain_ms = cuda_ms(torch, lambda: ks.mttkrp_slab_batched_plain(
+            idxp, valsp, lrowsp, rb_of, in_f, **kw), 3)
+        library_ms, krp_bytes = 0.0, 0
+        for b, x in enumerate(lanes):
+            lib, krp_bytes = library_mttkrp(torch, np, x.indices, UBER_SHAPE, d,
+                                            x.values, [f[b] for f in in_f])
+            library_ms += cuda_ms(torch, lib, 3)
+            del lib
+            torch.cuda.empty_cache()
+        batched_times.append({
+            "mode": d, "lanes": LANES, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "library_krp_bytes_per_lane": krp_bytes,
+            **slab_bound(LANES * slots, len(others),
+                         int(chunks.chunk_slab.numel() + chunks.rb_chunk_ptr.numel()),
+                         LANES * sum(UBER_SHAPE[w] for w in others),
+                         LANES * nrb * br)})
 
-    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
-    top = sorted(kernels, key=dev_us, reverse=True)[:8]
+    # Sweep time at B = 8 and B = 1 per method, and two profiled B = 8 sweeps.
+    sweeps = {}
+    for method in METHODS:
+        prep1 = eng.prepare_batch(
+            lanes[:1], n_iters=10, seeds=[0], nnz_cap=cap, method=method,
+            **({"weights": lane_w[:1]} if method == "masked" else {}))
+        row = {}
+        for B, prep in ((LANES, preps[method]), (1, prep1)):
+            fn = eng_block(eng, prep, 1)
+            ms = cuda_ms(torch, lambda: fn(prep.carry, prep.mode_data_all,
+                                           prep.fit_data, prep.tol_dev,
+                                           prep.max_iters_dev), 5)
+            row[f"B{B}_sweep_ms"] = ms
+            row[f"B{B}_decompositions_per_s"] = B * 1e3 / (10 * ms)
+        sweeps[method] = row
+        del prep1
+    two_b = eng_block(eng, prep_cp, 2)
+    args = (prep_cp.carry, prep_cp.mode_data_all, prep_cp.fit_data, prep_cp.tol_dev,
+            prep_cp.max_iters_dev)
+    two_b(*args)
+    batched_profile = device_idle(torch, lambda: two_b(*args), clock)
+
     emit({"phase": "times", "nvidia_smi": smi, "modes": per_mode,
           "sweep_ms": sweep_ms, "mttkrp_ms": mttkrp_ms, "fit_ms": fit_ms,
           "solve_and_other_ms": sweep_ms - mttkrp_ms - fit_ms,
-          "profile": {"sweeps": 2, "wall_ms": wall_ms,
-                      "device_busy_ms": busy_ms if kernels else None,
-                      "device_idle_share": (1.0 - busy_ms / wall_ms) if kernels else None,
-                      "top": [{"name": e.key[:60], "count": e.count,
-                               "ms": dev_us(e) / 1e3} for e in top]}})
+          "cp_tail_ms": cp_tail_ms, "hals_tail_ms": hals_ms,
+          "nncp_sweep_ms": nn_sweep_ms, "masked_sweep_ms": mk_sweep_ms,
+          "profile": {"sweeps": 2, **profile},
+          "valued_modes": valued_modes, "batched_modes": batched_times,
+          "batched_sweeps": sweeps,
+          "batched_profile": {"sweeps": 2, "lanes": LANES, "method": "cp",
+                              **batched_profile}})
 
-    emit({"kernels": [{
-        "name": "mttkrp_slab", "route": "cuda",
-        "source": "src/repro_torch/csrc/mttkrp_slab.cu",
-        "replaces": "src/repro/kernels/mttkrp_pallas.py:166",
-        "launches": launches,
-        "max_abs_err": max(m["max_abs_err"] for m in modes),
-        "ms": sum(m["ms"] for m in per_mode),
-        "plain_ms": sum(m["plain_ms"] for m in per_mode),
-        "bound_ms": sum(m["bound_ms"] for m in per_mode),
-        "bound_by": "bytes" if all(m["bound_by"] == "bytes" for m in per_mode)
-        else "operations",
-        "library_ms": sum(m["library_ms"] for m in per_mode),
-    }]})
+    def kernel_entry(name, modes, launches, err):
+        return {
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/mttkrp_slab.cu",
+            "replaces": "src/repro/kernels/mttkrp_pallas.py:166",
+            "launches": launches, "max_abs_err": err,
+            "ms": sum(m["ms"] for m in modes),
+            "plain_ms": sum(m["plain_ms"] for m in modes),
+            "bound_ms": sum(m["bound_ms"] for m in modes),
+            "bound_by": "bytes" if all(m["bound_by"] == "bytes" for m in modes)
+            else "operations",
+            "library_ms": sum(m["library_ms"] for m in modes),
+        }
+
+    emit({"kernels": [
+        kernel_entry("mttkrp_slab", per_mode, launches,
+                     max(m["max_abs_err"] for m in modes)),
+        kernel_entry("mttkrp_slab_valued", valued_modes,
+                     mk_launches["mttkrp_slab_valued"],
+                     max(m["max_abs_err"] for m in valued_modes)),
+        kernel_entry("mttkrp_slab_batched", batched_times, batched_launches,
+                     max(m["max_abs_err"] for m in batched_modes)),
+    ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -2,9 +2,12 @@
 
 The main path -- one sparse CP decomposition of one tensor on one device --
 is ``repro_torch.core.cpd.cpd_als`` -> ``core.als_device.cpd_als_fused``.
-Its MTTKRP runs through the hand-written Hopper kernel in
-``csrc/mttkrp_slab.cu`` (the counterpart of the Pallas kernel in
-``repro/kernels/mttkrp_pallas.py``).
+``cpd_als(method=...)`` also runs the decomposition methods of
+``repro_torch.methods`` ('nncp', 'masked' with observation weights), and
+``repro_torch.serve.BatchedEngine`` decomposes B same-bucket tensors in
+lockstep on one device.  Their MTTKRP runs through the hand-written
+Hopper kernel in ``csrc/mttkrp_slab.cu`` (the counterpart of the Pallas
+kernel in ``repro/kernels/mttkrp_pallas.py``).
 
 Entry points take ``device=`` and default to ``"cuda"``; they raise when
 CUDA is asked for and absent.  ``device="cpu"`` runs every kernel's plain

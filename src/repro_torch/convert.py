@@ -1,11 +1,18 @@
 """CP state between the JAX package and the port.
 
 A CP state is ``(factors, grams, weights)``: N factor matrices (I_d, R),
-their R x R grams and the (R,) weights lambda.  ``state_from_reference``
-takes the reference's state as numpy arrays -- from
-``repro.core.als_device.init_state_host`` or from a ``CPDResult`` (whose
-grams are recomputed) -- and returns the port's, so both packages start
-from, and compute, the same thing.  ``state_to_host`` goes back.
+their R x R grams and the (R,) weights lambda, whatever the method (the
+nncp init and a masked run's state have the same form).
+``state_from_reference`` takes the reference's state as numpy arrays --
+from ``repro.core.als_device.init_state_host``, a method's
+``init_state_host`` or a ``CPDResult`` (whose grams are recomputed) -- and
+returns the port's, so both packages start from, and compute, the same
+thing.  ``state_to_host`` goes back.
+
+The reference's batched service carries one stacked state, every leaf
+with a leading batch dimension (B, ...); the port's carries one state per
+lane.  ``batch_from_reference`` and ``batch_to_host`` convert between the
+two.
 """
 from __future__ import annotations
 
@@ -36,3 +43,24 @@ def state_to_host(state):
     return (tuple(F.cpu().numpy() for F in factors),
             tuple(G.cpu().numpy() for G in grams),
             weights.cpu().numpy())
+
+
+def batch_from_reference(factors, grams, weights, device="cuda"):
+    """Port lane states from a stacked reference state: N factor arrays
+    (B, I_d, R), N gram arrays (B, R, R) or None (recomputed), weights
+    (B, R)."""
+    B = np.asarray(weights).shape[0]
+    return [state_from_reference([F[b] for F in factors],
+                                 None if grams is None else [G[b] for G in grams],
+                                 weights[b], device=device)
+            for b in range(B)]
+
+
+def batch_to_host(states):
+    """The stacked numpy state ``(factors, grams, weights)``, every leaf
+    (B, ...), of a list of port lane states."""
+    hosts = [state_to_host(st) for st in states]
+    N = len(hosts[0][0])
+    return (tuple(np.stack([h[0][d] for h in hosts]) for d in range(N)),
+            tuple(np.stack([h[1][d] for h in hosts]) for d in range(N)),
+            np.stack([h[2] for h in hosts]))

@@ -1,11 +1,12 @@
-"""Device-resident CPD-ALS (port of ``repro.core.als_device``, method "cp").
+"""Device-resident CPD-ALS (port of ``repro.core.als_device``).
 
-The whole N-mode sweep -- MTTKRP (slab / segment / coo backend), gram
-updates, the ridge normal-equations solve, column normalization and the
-sparse fit -- runs on the device with the state carried there.  A
-``check_every`` window of sweeps is queued without any host read; the
-host reads once per window (the last fit and a solve-health flag, in one
-transfer) and once at the end.  ``CPDResult.host_syncs`` counts them.
+The whole N-mode sweep -- MTTKRP (slab / segment / coo backend), the
+method's per-mode update (for CP: gram Hadamard, the ridge
+normal-equations solve, column normalization) and the fit -- runs on the
+device with the state carried there.  A ``check_every`` window of sweeps
+is queued without any host read; the host reads once per window (the
+last fit and a solve-health flag, in one transfer) and once at the end.
+``CPDResult.host_syncs`` counts them.
 
 The reference guards each solve with ``lax.cond(all finite)`` and a pinv
 rescue.  Here the solve reports, on the device, whether its
@@ -14,13 +15,30 @@ with the window's fit read.  When it is set, the window is run again from
 its starting state with the per-solve pinv rescue -- the same factors the
 reference computes, and a rare path that may sync.
 
+Decomposition methods.  The substrate is method-agnostic: a method
+(``repro_torch.methods``) supplies the per-mode update rule and, for the
+masked method, the per-sweep values its MTTKRP runs on; everything else
+-- the MTTKRP backends, the window, the fit, the caches -- is shared.
+The sweep is written over *lanes*: a list of independent states, each
+with its own fit data.  The fused engine runs one lane.  The batched
+service (``repro_torch.serve``) runs B lanes in lockstep: per mode one
+MTTKRP for all lanes (one launch of the batched kernel on the slab
+backend), then each lane's update on its own tensors.  Every lane
+therefore computes exactly what the one-lane sweep computes on its data,
+whatever B is.  (The reference gets the same from ``jax.vmap``; in
+PyTorch a batched matmul or reduction may pick another kernel, and so
+another summation order, for another B.)
+
 Window functions are cached per (backend, nmodes, rank, shapes, slab
-tiling, solver, block length), as the reference caches its compiled
-sweep blocks; ``sweep_cache_stats()`` exposes the hits and misses.
+tiling, solver, block length, method), as the reference caches its
+compiled sweep blocks; ``sweep_cache_stats()`` exposes the hits and
+misses.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
+from typing import Callable
 
 import numpy as np
 import torch
@@ -28,6 +46,8 @@ import torch
 from ..convert import state_from_reference
 from ..device import resolve_device
 from ..kernels import ref as kref
+from ..kernels.mttkrp_slab import (mttkrp_slab_batched, mttkrp_slab_valued,
+                                   scatter_slab_values)
 from ..obs import clock as obs_clock
 from .coo import SparseTensor
 from .cpd import CPDResult
@@ -81,6 +101,92 @@ def _build_one_mttkrp(backend: str, nmodes: int, shapes: tuple[int, ...],
     return one_mttkrp
 
 
+def _build_valued_mttkrp(backend: str, nmodes: int, shapes: tuple[int, ...],
+                         slab_meta: tuple | None):
+    """``mttkrp_valued(d, mode_data, factors, vals) -> (I_d, R)``: the
+    valued entry.  Mode data carries only the structural layout arrays; a
+    fresh canonical-order value vector (the masked method's per-sweep
+    residual) runs through the same kernels:
+
+      slab:    (idx_packed, lrows_packed, rb_of, chunks, row_perm, perm,
+                val_scatter)            vals[perm] scattered into the slabs
+      segment: (idx, rows, row_perm, perm)     vals_layout = vals[perm]
+      coo:     (indices,)                      canonical order already
+    """
+    in_modes = [tuple(w for w in range(nmodes) if w != d)
+                for d in range(nmodes)]
+
+    def mttkrp_valued(d, mode_data, factors, vals):
+        if backend == "slab":
+            idxp, lrowsp, rb_of, chunks, row_perm, perm, scatter = mode_data
+            nrb, br, tile, rblk = slab_meta[d]
+            out = mttkrp_slab_valued(
+                idxp, vals[perm], scatter, lrowsp, rb_of,
+                [factors[w] for w in in_modes[d]], chunks=chunks,
+                num_row_blocks=nrb, block_rows=br, tile=tile,
+                rank_block=rblk)[:shapes[d]]
+            return unrelabel_rows(out, row_perm)
+        if backend == "segment":
+            idx, rows, row_perm, perm = mode_data
+            out = kref.mttkrp_sorted_segments(
+                idx, rows, vals[perm], [factors[w] for w in in_modes[d]],
+                shapes[d])
+            return unrelabel_rows(out, row_perm)
+        if backend == "coo":
+            (indices,) = mode_data
+            return kref.mttkrp_coo(indices, vals, list(factors), d, shapes[d])
+        raise ValueError(f"unknown backend {backend!r}")
+
+    return mttkrp_valued
+
+
+def _build_lane_mttkrp(backend: str, nmodes: int, shapes: tuple[int, ...],
+                       slab_meta: tuple | None, valued: bool, batched: bool):
+    """``mttkrp_lanes(d, mode_data, factor_lanes, value_lanes) -> [M per
+    lane]`` (``value_lanes`` is None unless ``valued``).
+
+    One lane (``batched=False``): mode data as ``_collect_mode_data`` or
+    ``collect_structural_mode_data`` give it.  A batch of lanes: on the
+    slab backend, the bucket-mates' packings stacked along a leading lane
+    dimension (``serve.batched_engine``) and ONE launch of the batched
+    kernel; the other backends take a list of per-lane mode data and run
+    each lane's MTTKRP in turn."""
+    single = (_build_valued_mttkrp if valued else _build_one_mttkrp)(
+        backend, nmodes, shapes, slab_meta)
+    if not batched:
+        def one_lane(d, mode_data, factor_lanes, value_lanes):
+            if valued:
+                return [single(d, mode_data, factor_lanes[0], value_lanes[0])]
+            return [single(d, mode_data, factor_lanes[0])]
+        return one_lane
+    if backend != "slab":
+        def lane_by_lane(d, mode_data, factor_lanes, value_lanes):
+            if valued:
+                return [single(d, md, F, v) for md, F, v in
+                        zip(mode_data, factor_lanes, value_lanes)]
+            return [single(d, md, F) for md, F in zip(mode_data, factor_lanes)]
+        return lane_by_lane
+    in_modes = [tuple(w for w in range(nmodes) if w != d)
+                for d in range(nmodes)]
+
+    def slab_batched(d, mode_data, factor_lanes, value_lanes):
+        nrb, br, tile, rblk = slab_meta[d]
+        if valued:
+            idxp, lrowsp, rb_of, chunks, row_perms, perm, scatter = mode_data
+            vals = torch.stack(value_lanes).gather(1, perm)
+            valsp = scatter_slab_values(vals, scatter, int(idxp.shape[-1]))
+        else:
+            idxp, valsp, lrowsp, rb_of, chunks, row_perms = mode_data
+        in_f = [torch.stack([F[w] for F in factor_lanes]) for w in in_modes[d]]
+        out = mttkrp_slab_batched(idxp, valsp, lrowsp, rb_of, in_f,
+                                  chunks=chunks, num_row_blocks=nrb,
+                                  block_rows=br, tile=tile, rank_block=rblk)
+        return [unrelabel_rows(out[b, :shapes[d]], row_perms[b])
+                for b in range(len(factor_lanes))]
+
+    return slab_batched
+
+
 def _hadamard_grams(grams, rank: int, exclude: int | None = None):
     V = torch.ones((rank, rank), dtype=torch.float32, device=grams[0].device)
     for w, g in enumerate(grams):
@@ -116,6 +222,20 @@ def _build_solver(rank: int, solver: str):
     return solve
 
 
+def _solve_with_rescue(solve):
+    """``solve(M, V, rescue=False) -> (Yd, ok)``.  ``rescue=True`` replaces
+    a failed solve by ``M @ pinv(Vr)`` (that branch reads the flag on the
+    host)."""
+
+    def solve_rescued(M, V, rescue=False):
+        Yd, ok, Vr = solve(M, V)
+        if rescue and not bool(ok):
+            Yd = M @ _pinv(Vr)
+        return Yd, ok
+
+    return solve_rescued
+
+
 def normalize_columns(Yd):
     """Column-normalize, guarding dead columns; returns (Yd, lam)."""
     lam = torch.linalg.vector_norm(Yd, dim=0)
@@ -143,38 +263,181 @@ def _build_sparse_fit(nmodes: int, rank: int):
     return sparse_fit
 
 
+def _build_weighted_fit(nmodes: int, rank: int):
+    """Observed-only weighted fit of the masked method:
+    ``1 - sqrt(sum_e w_e (x_e - model_e)^2) / sqrt(sum_e w_e x_e^2)``.
+    ``fit_data = (indices, values, entry_weights, weighted_norm_sq)``;
+    weight-0 entries (nnz padding, or entries the caller masked out) add
+    exactly +0.0.  ``grams`` is unused; the signature is the sparse fit's."""
+
+    def weighted_fit(factors, grams, weights, fit_data):
+        indices, values, ew, norm_x_sq = fit_data
+        resid = values - kref.cp_model_at_coords(indices, factors, weights)
+        resid_sq = torch.sum(ew * resid * resid)
+        return 1.0 - torch.sqrt(resid_sq) / torch.clamp(
+            torch.sqrt(norm_x_sq), min=1e-12)
+
+    return weighted_fit
+
+
+def validate_entry_weights(nnz: int, weights) -> np.ndarray:
+    """A front-door per-entry weight vector as (nnz,) float32, finite and
+    nonnegative; raises otherwise."""
+    w = np.asarray(weights, dtype=np.float32).reshape(-1)
+    if w.shape[0] != nnz:
+        raise ValueError(
+            f"entry weights must align with the nnz list: got {w.shape[0]} "
+            f"weights for {nnz} nonzeros")
+    if not np.all(np.isfinite(w)):
+        raise ValueError("entry weights must be finite")
+    if w.size and float(w.min()) < 0.0:
+        raise ValueError("entry weights must be nonnegative")
+    return w
+
+
+def normalize_entry_weights(w: np.ndarray) -> np.ndarray:
+    """Divide by ``max(1, w.max())``: the masked method's EM update is a
+    majorizer only for weights in [0, 1], and the weighted objective (its
+    argmin and its fit) does not change when the whole vector is scaled.
+    Vectors already in [0, 1] pass through untouched; the map is
+    idempotent."""
+    m = float(w.max()) if w.size else 0.0
+    return (w / np.float32(m)).astype(np.float32) if m > 1.0 else w
+
+
+@dataclasses.dataclass(frozen=True)
+class SweepContext:
+    """What a decomposition method's update rule may use: the shared solve
+    (ridge, on-device failure flag, pinv rescue), column normalization,
+    the gram Hadamard and the two fits.  A method's ``update(ctx, d, M,
+    factors, grams, weights, rescue) -> (Yd, lam, ok)`` and
+    ``mttkrp_values(ctx, factors, weights, fit_data)`` receive it; the
+    MTTKRP between them (``one_mttkrp`` / ``mttkrp_valued``) is run by the
+    sweep, for one lane or a batch."""
+
+    nmodes: int
+    rank: int
+    shapes: tuple[int, ...]
+    one_mttkrp: Callable      # lanes: (d, mode_data, factor_lanes, None)
+    mttkrp_valued: Callable   # lanes: (d, mode_data, factor_lanes, value_lanes)
+    solve: Callable           # (M, V, rescue=False) -> (Yd, ok)
+    normalize: Callable       # (Yd) -> (Yd, lam)
+    sparse_fit: Callable      # (factors, grams, weights, fit_data) -> fit
+    weighted_fit: Callable    # same signature, masked fit data
+    hadamard: Callable        # (grams, exclude=None) -> (R, R)
+
+
+def make_sweep_context(backend: str, nmodes: int, rank: int,
+                       shapes: tuple[int, ...], slab_meta: tuple | None,
+                       solver: str, valued: bool = False,
+                       batched: bool = False) -> SweepContext:
+    """The context a sweep hands its method: the lane MTTKRP of the
+    value-baked (``valued=False``) or valued entry, for one lane or a
+    batch, and the shared solve, normalization, Hadamard and fits."""
+    lane_mttkrp = _build_lane_mttkrp(backend, nmodes, shapes, slab_meta,
+                                     valued, batched)
+    return SweepContext(
+        nmodes=nmodes, rank=rank, shapes=shapes,
+        one_mttkrp=None if valued else lane_mttkrp,
+        mttkrp_valued=lane_mttkrp if valued else None,
+        solve=_solve_with_rescue(_build_solver(rank, solver)),
+        normalize=normalize_columns,
+        sparse_fit=_build_sparse_fit(nmodes, rank),
+        weighted_fit=_build_weighted_fit(nmodes, rank),
+        hadamard=functools.partial(_hadamard_grams, rank=rank),
+    )
+
+
+def cp_update(ctx: SweepContext, d, M, factors, grams, weights, rescue):
+    """Unconstrained CP's mode update: ridge normal equations, then column
+    normalization.  ``ok`` is the solve's on-device health flag."""
+    V = ctx.hadamard(grams, exclude=d)
+    Yd, ok = ctx.solve(M, V, rescue)
+    Yd, lam = ctx.normalize(Yd)
+    return Yd, lam, ok
+
+
+def _method_spec(method: str):
+    """The registry entry of ``method`` (None for the inline CP path);
+    raises for a stateful method, which has no sweep."""
+    if method == "cp":
+        return None
+    from ..methods import get_method   # lazy: core imports without methods
+
+    spec = get_method(method)
+    if spec.stateful:
+        raise ValueError(
+            f"method {method!r} is stateful; it drives the substrate through "
+            f"its own session API")
+    return spec
+
+
 # ---------------------------------------------------------------------------
 # Sweep and window builders
 # ---------------------------------------------------------------------------
 
 
+def build_lane_sweep(backend: str, nmodes: int, rank: int,
+                     shapes: tuple[int, ...], slab_meta: tuple | None,
+                     solver: str, method: str = "cp", batched: bool = False):
+    """One full sweep over lanes: ``sweep(states, mode_data_all, fit_data,
+    rescue=False) -> (states, fits, oks)``, one entry per lane in each
+    list.  ``mode_data_all`` is one lane's (``batched=False``) or the
+    batch's (see ``_build_lane_mttkrp``); ``fit_data`` has one entry per
+    lane.  ``oks[b]`` is lane b's on-device solve flag (None for a method
+    without a solve).  No state is updated in place, so a caller may keep
+    the previous one."""
+    spec = _method_spec(method)
+    valued = spec is not None and spec.valued_mode_data
+    ctx = make_sweep_context(backend, nmodes, rank, shapes, slab_meta, solver,
+                             valued, batched)
+    update = spec.update if spec is not None and spec.update else cp_update
+    values_for = spec.mttkrp_values if valued else None
+    mttkrp = ctx.mttkrp_valued if valued else ctx.one_mttkrp
+    fit_fn = (ctx.weighted_fit if spec is not None and spec.weighted_fit
+              else ctx.sparse_fit)
+
+    def sweep(states, mode_data_all, fit_data, rescue=False):
+        factors = [list(st[0]) for st in states]
+        grams = [list(st[1]) for st in states]
+        weights = [st[2] for st in states]
+        oks = [[] for _ in states]
+        for d in range(nmodes):
+            vals = None
+            if valued:
+                vals = [values_for(ctx, F, w, fd)
+                        for F, w, fd in zip(factors, weights, fit_data)]
+            Ms = mttkrp(d, mode_data_all[d], factors, vals)
+            for b, M in enumerate(Ms):
+                Yd, lam, ok = update(ctx, d, M, factors[b], grams[b],
+                                     weights[b], rescue)
+                factors[b][d] = Yd
+                grams[b][d] = Yd.T @ Yd
+                weights[b] = lam
+                if ok is not None:
+                    oks[b].append(ok)
+        fits = [fit_fn(F, G, w, fd)
+                for F, G, w, fd in zip(factors, grams, weights, fit_data)]
+        states = [(tuple(F), tuple(G), w)
+                  for F, G, w in zip(factors, grams, weights)]
+        return states, fits, [torch.stack(o).all() if o else None for o in oks]
+
+    return sweep
+
+
 def build_sweep_fn(backend: str, nmodes: int, rank: int,
                    shapes: tuple[int, ...], slab_meta: tuple | None,
-                   solver: str):
-    """One full sweep: ``sweep(state, mode_data_all, fit_data, rescue) ->
-    (state, fit, ok)``.  The state is never updated in place, so a caller
-    may keep the previous one.  ``rescue=True`` replaces a failed solve by
-    ``M @ pinv(Vr)`` (that branch reads the flag on the host)."""
-    one_mttkrp = _build_one_mttkrp(backend, nmodes, shapes, slab_meta)
-    solve = _build_solver(rank, solver)
-    sparse_fit = _build_sparse_fit(nmodes, rank)
+                   solver: str, method: str = "cp"):
+    """One full sweep of one tensor: ``sweep(state, mode_data_all,
+    fit_data, rescue=False) -> (state, fit, ok)``, the one-lane case of
+    ``build_lane_sweep``.  ``rescue=True`` replaces a failed solve by
+    ``M @ pinv(Vr)``."""
+    lanes = build_lane_sweep(backend, nmodes, rank, shapes, slab_meta,
+                             solver, method)
 
     def sweep(state, mode_data_all, fit_data, rescue=False):
-        factors, grams, weights = list(state[0]), list(state[1]), state[2]
-        ok_all = None
-        for d in range(nmodes):
-            M = one_mttkrp(d, mode_data_all[d], factors)
-            V = _hadamard_grams(grams, rank, exclude=d)
-            Yd, ok, Vr = solve(M, V)
-            if rescue and not bool(ok):
-                Yd = M @ _pinv(Vr)
-            ok_all = ok if ok_all is None else ok_all & ok
-            Yd, lam = normalize_columns(Yd)
-            factors[d] = Yd
-            grams[d] = Yd.T @ Yd
-            weights = lam
-        fit = sparse_fit(factors, grams, weights, fit_data)
-        return (tuple(factors), tuple(grams), weights), fit, ok_all
+        states, fits, oks = lanes([state], mode_data_all, [fit_data], rescue)
+        return states[0], fits[0], oks[0]
 
     return sweep
 
@@ -182,18 +445,20 @@ def build_sweep_fn(backend: str, nmodes: int, rank: int,
 @functools.lru_cache(maxsize=None)
 def _build_sweep_block(backend: str, nmodes: int, rank: int,
                        shapes: tuple[int, ...], slab_meta: tuple | None,
-                       solver: str, block: int):
+                       solver: str, block: int, method: str = "cp"):
     """``run_block(state, mode_data_all, fit_data, rescue=False) ->
     (state, fits (block,), ok)``: ``block`` sweeps queued back to back with
-    no host read."""
-    sweep = build_sweep_fn(backend, nmodes, rank, shapes, slab_meta, solver)
+    no host read.  ``ok`` is None for a method without a solve."""
+    sweep = build_sweep_fn(backend, nmodes, rank, shapes, slab_meta, solver,
+                           method)
 
     def run_block(state, mode_data_all, fit_data, rescue=False):
         fits, ok = [], None
         for _ in range(block):
             state, fit, ok_s = sweep(state, mode_data_all, fit_data, rescue)
             fits.append(fit)
-            ok = ok_s if ok is None else ok & ok_s
+            if ok_s is not None:
+                ok = ok_s if ok is None else ok & ok_s
         return state, torch.stack(fits), ok
 
     return run_block
@@ -223,6 +488,27 @@ def _collect_mode_data(plan: MTTKRPPlan, backend: str, rank: int):
     if backend == "coo":
         coo = plan.device_coo()
         return tuple(coo for _ in range(N)), None
+    raise ValueError(f"unknown backend {backend!r}")
+
+
+def collect_structural_mode_data(plan: MTTKRPPlan, backend: str, rank: int):
+    """Mode data for the valued MTTKRP (see ``_build_valued_mttkrp``):
+    structural layout arrays plus the canonical->layout permutation (and
+    the layout->slab scatter for slab), no baked values.  The masked
+    method collects through here."""
+    N = plan.tensor.nmodes
+    if backend == "slab":
+        metas = []
+        for d in range(N):
+            packed = plan.packed(d)
+            metas.append((packed.num_row_blocks, packed.block_rows,
+                          packed.tile, plan.mode_plan(d, rank).rank_block))
+        return (tuple(plan.device_structural(d, backend) for d in range(N)),
+                tuple(metas))
+    if backend == "segment":
+        return tuple(plan.device_structural(d, backend) for d in range(N)), None
+    if backend == "coo":
+        return tuple((plan.device_coo()[0],) for _ in range(N)), None
     raise ValueError(f"unknown backend {backend!r}")
 
 
@@ -280,7 +566,9 @@ def cpd_als_fused(
     backend: str = "slab",
     check_every: int = 1,
     solver: str = "auto",
+    method: str = "cp",
     init_state: tuple | None = None,
+    weights: np.ndarray | None = None,
     profile_mttkrp: bool = False,
     verbose: bool = False,
     device="cuda",
@@ -290,39 +578,61 @@ def cpd_als_fused(
     is queued without a host read and the host syncs only at window
     boundaries.
 
-    ``init_state`` (a host state tuple, e.g. from ``state_from_factors``)
-    warm-starts instead of the seeded random init.  ``profile_mttkrp=True``
-    replays the run's MTTKRPs alone afterwards (their launches count in
-    the kernel's ``LAUNCHES``) so ``mttkrp_seconds`` is separable from
-    solve time."""
+    ``method`` selects the update rule from ``repro_torch.methods``
+    ('cp', 'nncp', 'masked').  ``weights`` -- per-entry observation
+    weights in canonical COO order, for weighted-fit methods ('masked')
+    only: validated, then divided by ``max(1, w.max())``.  ``init_state``
+    (a host state tuple, e.g. from ``state_from_factors``) warm-starts
+    instead of the method's seeded init.  ``profile_mttkrp=True`` replays
+    the run's MTTKRPs alone afterwards (their launches count in the
+    kernel's ``LAUNCHES``) so ``mttkrp_seconds`` is separable from the
+    rest; it covers value-baked mode data only (not 'masked')."""
     t_start = obs_clock.now()
     dev = resolve_device(device)
     N = tensor.nmodes
     check_every = max(1, int(check_every))
-    host_state = (init_state if init_state is not None
-                  else init_state_host(tensor.shape, rank, seed))
+    spec = _method_spec(method)
+    if weights is not None:
+        if spec is None or not spec.weighted_fit:
+            raise ValueError(
+                f"per-entry weights require a weighted-fit method "
+                f"(e.g. 'masked'), got method={method!r}")
+        weights = normalize_entry_weights(
+            validate_entry_weights(tensor.nnz, weights))
+    if init_state is not None:
+        host_state = init_state
+    elif spec is not None and spec.init_state_host is not None:
+        host_state = spec.init_state_host(tensor.shape, rank, seed)
+    else:
+        host_state = init_state_host(tensor.shape, rank, seed)
     state = state_from_reference(*host_state, device=dev)
     solver = resolve_solver(solver, dev)
 
+    structural = spec is not None and spec.valued_mode_data
     if plan is None and backend == "coo":
         # The coo backend needs no mode-specific layouts.
-        coo = (torch.as_tensor(tensor.indices, device=dev),
-               torch.as_tensor(tensor.values.astype(np.float32), device=dev))
+        idx = torch.as_tensor(tensor.indices, device=dev)
+        coo = ((idx,) if structural else
+               (idx, torch.as_tensor(tensor.values.astype(np.float32), device=dev)))
         mode_data_all, slab_meta = tuple(coo for _ in range(N)), None
     else:
         if plan is None:
             plan = make_plan(tensor, kappa, device=dev)
         elif plan.device != dev:
             raise ValueError(f"plan lives on {plan.device}, run asked for {dev}")
-        mode_data_all, slab_meta = _collect_mode_data(plan, backend, rank)
-    fit_data = make_fit_data(tensor, dev)
+        collect = collect_structural_mode_data if structural else _collect_mode_data
+        mode_data_all, slab_meta = collect(plan, backend, rank)
+    if spec is not None and spec.make_fit_data is not None:
+        fit_data = spec.make_fit_data(tensor, weights, dev)
+    else:
+        fit_data = make_fit_data(tensor, dev)
 
     shapes = tuple(int(s) for s in tensor.shape)
     n_blocks, rem = divmod(n_iters, check_every)
     sweep_k = _build_sweep_block(backend, N, rank, shapes, slab_meta, solver,
-                                 check_every) if n_blocks else None
+                                 check_every, method) if n_blocks else None
     sweep_rem = _build_sweep_block(backend, N, rank, shapes, slab_meta, solver,
-                                   rem) if rem else None
+                                   rem, method) if rem else None
 
     fits_dev: list = []
     host_syncs = 0
@@ -335,7 +645,10 @@ def cpd_als_fused(
         start = state
         state, fits_blk, ok = fn(start, mode_data_all, fit_data)
         # The only in-window host sync: the last fit and the solve flag.
-        f, healthy = torch.stack([fits_blk[-1], ok.to(fits_blk.dtype)]).tolist()
+        if ok is None:
+            f, healthy = float(fits_blk[-1]), True
+        else:
+            f, healthy = torch.stack([fits_blk[-1], ok.to(fits_blk.dtype)]).tolist()
         host_syncs += 1
         if not healthy:
             state, fits_blk, _ = fn(start, mode_data_all, fit_data, rescue=True)
@@ -345,7 +658,7 @@ def cpd_als_fused(
         windows_run.append(k)
         it += k
         if verbose:
-            print(f"  ALS iter {it:3d}: fit={f:.6f} (cp/fused)")
+            print(f"  ALS iter {it:3d}: fit={f:.6f} ({method}/fused)")
         if abs(f - last_fit) < tol:
             break
         last_fit = f
@@ -354,7 +667,7 @@ def cpd_als_fused(
     fits = torch.cat(fits_dev).tolist() if fits_dev else []
 
     mttkrp_seconds = 0.0
-    if profile_mttkrp and windows_run:
+    if profile_mttkrp and windows_run and not structural:
         mttkrp_seconds = _profile_mttkrp_replay(
             _build_one_mttkrp(backend, N, shapes, slab_meta), N, state[0],
             mode_data_all, sum(windows_run), dev)
@@ -368,6 +681,7 @@ def cpd_als_fused(
         total_seconds=obs_clock.now() - t_start,
         host_syncs=host_syncs,
         engine="fused",
+        method=method,
     )
 
 

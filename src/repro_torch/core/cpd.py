@@ -74,7 +74,9 @@ def cpd_als(
     backend: str = "slab",
     engine: str = "fused",
     check_every: int = 1,
+    method: str = "cp",
     init_state: tuple | None = None,
+    weights: np.ndarray | None = None,
     verbose: bool = False,
     device="cuda",
 ) -> CPDResult:
@@ -82,13 +84,20 @@ def cpd_als(
 
     ``engine="fused"`` delegates to ``als_device.cpd_als_fused``: factors
     stay on the device and the host syncs once per ``check_every`` window.
-    ``engine="host"`` is the per-mode host loop.
-    ``init_state`` (a host state tuple, see ``als_device.init_state_host``)
-    warm-starts the fused engine."""
+    ``engine="host"`` is the per-mode host loop (plain CP only).
+    ``method`` selects the decomposition method from
+    ``repro_torch.methods`` ('cp', 'nncp', 'masked').  ``init_state`` (a
+    host state tuple, see ``als_device.init_state_host``) warm-starts the
+    fused engine.  ``weights`` -- per-entry observation weights in
+    canonical COO order for weighted-fit methods ('masked'): fractional
+    confidences, weight 0 = the entry is treated as unobserved."""
     if engine not in ("fused", "host"):
         raise ValueError(f"unknown engine {engine!r}")
-    if engine == "host" and init_state is not None:
-        raise ValueError("engine='host' supports only the seeded random init")
+    if engine == "host" and (method != "cp" or init_state is not None
+                             or weights is not None):
+        raise ValueError(
+            "engine='host' supports only method='cp' with random init; "
+            "methods, warm starts and entry weights run on the fused engine")
     dev = resolve_device(device)
     if engine == "fused":
         from .als_device import cpd_als_fused
@@ -96,7 +105,8 @@ def cpd_als(
         return cpd_als_fused(
             tensor, rank, plan=plan, kappa=kappa, n_iters=n_iters, tol=tol,
             seed=seed, backend=backend, check_every=check_every,
-            init_state=init_state, verbose=verbose, device=dev,
+            method=method, init_state=init_state, weights=weights,
+            verbose=verbose, device=dev,
         )
     t_start = obs_clock.now()
     rng = np.random.default_rng(seed)

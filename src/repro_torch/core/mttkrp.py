@@ -46,6 +46,7 @@ class MTTKRPPlan:
     _packed: dict[int, kops.PackedModeLayout] = dataclasses.field(default_factory=dict)
     _dev_arrays: dict[int, tuple] = dataclasses.field(default_factory=dict)
     _dev_packed: dict[int, tuple] = dataclasses.field(default_factory=dict)
+    _dev_structural: dict[tuple, tuple] = dataclasses.field(default_factory=dict)
     _dev_coo: tuple | None = None
 
     def packed(self, mode: int) -> kops.PackedModeLayout:
@@ -104,6 +105,30 @@ class MTTKRPPlan:
                                 device=dev),
             )
         return self._dev_packed[mode]
+
+    def device_structural(self, mode: int, backend: str) -> tuple:
+        """The valued MTTKRP's structural arrays on the plan's device
+        (cached; no values): for ``slab`` ``(idx_packed, lrows_packed,
+        rb_of, chunks, row_perm, perm, val_scatter)``, for ``segment``
+        ``(idx, rows, row_perm, perm)``.  ``perm`` maps canonical to layout
+        order and ``val_scatter`` layout order to packed slots (int64)."""
+        key = (mode, backend)
+        if key not in self._dev_structural:
+            perm = torch.as_tensor(self.layouts[mode].perm.astype(np.int64),
+                                   device=self.device)
+            if backend == "slab":
+                idxp, _, lrowsp, rb_of, chunks, row_perm = self.device_packed(mode)
+                scatter = torch.as_tensor(
+                    self.packed(mode).val_scatter.astype(np.int64),
+                    device=self.device)
+                arrays = (idxp, lrowsp, rb_of, chunks, row_perm, perm, scatter)
+            elif backend == "segment":
+                idx, rows, _, row_perm = self.device_arrays(mode)
+                arrays = (idx, rows, row_perm, perm)
+            else:
+                raise ValueError(f"no structural mode data for backend {backend!r}")
+            self._dev_structural[key] = arrays
+        return self._dev_structural[key]
 
     def device_coo(self) -> tuple:
         """COO indices/values on the plan's device (cached)."""

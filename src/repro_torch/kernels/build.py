@@ -27,12 +27,12 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
-# mttkrp_slab_launch(device, chunk_slab, rb_chunk_ptr, num_chunks,
-#   num_row_blocks, chunk_slabs, idx, vals, lrows, factor_ptrs, num_inputs,
-#   factors_bf16, rank, slots, tile, block_rows, rank_block, r_pad,
-#   walkers, partials, out, stream)
-_MTTKRP_SLAB_ARGTYPES = [_I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _I,
-                         _LL, _I, _I, _I, _I, _I, _P, _P, _P]
+# mttkrp_slab_launch(device, batch, chunk_slab, rb_chunk_ptr, num_chunks,
+#   num_row_blocks, chunk_slabs, idx, vals, lrows, factor_ptrs,
+#   factor_lane_strides, num_inputs, factors_bf16, rank, slots, tile,
+#   block_rows, rank_block, r_pad, walkers, partials, out, stream)
+_MTTKRP_SLAB_ARGTYPES = [_I, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _I,
+                         _I, _I, _LL, _I, _I, _I, _I, _I, _P, _P, _P]
 
 
 def nvcc_path() -> str:

@@ -1,5 +1,6 @@
-"""The port on the card: the CUDA kernel against its plain version, and the
-main path through the kernel.  Every test here carries the ``cuda``
+"""The port on the card: the CUDA kernel's three entries (value-baked,
+valued, batched) against their plain versions, and the main path, the
+methods and the batched service through the kernel.  Every test here carries the ``cuda``
 marker and skips without a card.  The file imports nothing of JAX, so on
 a machine with the card and without JAX it runs as
 
@@ -16,9 +17,11 @@ import torch
 
 from repro_torch.core.coo import random_sparse
 from repro_torch.core.cpd import cpd_als
+from repro_torch.core.layout import build_all_mode_layouts
 from repro_torch.core.mttkrp import make_plan
 from repro_torch.kernels import mttkrp_slab as ks
 from repro_torch.kernels.ops import pack_layout
+from repro_torch.serve import BatchedEngine
 
 
 @pytest.fixture
@@ -47,10 +50,10 @@ def test_kernel_matches_plain_on_card(cuda, R, rank_block, dtype):
         in_f = [F[w] for w in plan.layouts[d].input_modes()]
         kw = dict(num_row_blocks=plan.packed(d).num_row_blocks,
                   block_rows=16, tile=64)
-        before = ks.LAUNCHES
+        before = ks.LAUNCHES["mttkrp_slab"]
         k = ks.mttkrp_slab(idxp, valsp, lrowsp, rb_of, in_f, chunks=chunks,
                            rank_block=rank_block, **kw)
-        assert ks.LAUNCHES == before + 1
+        assert ks.LAUNCHES["mttkrp_slab"] == before + 1
         plain = ks.mttkrp_slab_plain(idxp, valsp, lrowsp, rb_of, in_f, **kw)
         mag = ks.mttkrp_slab_plain(idxp, valsp.abs(), lrowsp, rb_of,
                                    [f.abs() for f in in_f], **kw)
@@ -92,9 +95,100 @@ def test_kernel_rejects_bad_inputs(cuda):
 @pytest.mark.cuda
 def test_main_path_on_card_launches_the_kernel(cuda):
     t = random_sparse((40, 7, 33, 5), 1500, seed=0, distribution="powerlaw")
-    before = ks.LAUNCHES
+    before = ks.LAUNCHES["mttkrp_slab"]
     res = cpd_als(t, 5, backend="slab", n_iters=4, check_every=2, tol=-1.0)
-    assert ks.LAUNCHES - before == 4 * t.nmodes
+    assert ks.LAUNCHES["mttkrp_slab"] - before == 4 * t.nmodes
     assert res.host_syncs == 3
     seg = cpd_als(t, 5, backend="segment", n_iters=4, check_every=2, tol=-1.0)
     np.testing.assert_allclose(res.fits, seg.fits, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,rank_block", [(8, None), (33, 16)])
+def test_batched_lanes_equal_single_launches_on_card(cuda, R, rank_block):
+    """Lane b of one batched launch is bitwise the single launch on lane
+    b's packing, lanes of different chunk counts included."""
+    shape, cap = (257, 63, 9), 6000
+    ts = [random_sparse(shape, 6000 - 900 * i, seed=i, distribution="powerlaw")
+          for i in range(4)]
+    eng = BatchedEngine(R, kappa=2, device=cuda)
+    bplan = eng.bucket_plan(shape, cap)
+    F = [torch.stack(f) for f in zip(*[_factors(shape, R, 30 + i, cuda)
+                                       for i in range(len(ts))])]
+    for d in range(len(shape)):
+        mp = bplan.modes[d]
+        lay_d = [build_all_mode_layouts(t, 2)[d] for t in ts]
+        packs = [pack_layout(lay, block_rows=mp.block_rows, tile=mp.tile,
+                             num_slabs_cap=mp.slab_cap) for lay in lay_d]
+        arr = [torch.as_tensor(np.stack([getattr(p, n) for p in packs]),
+                               device=cuda)
+               for n in ("idx_packed", "vals_packed", "lrows_packed", "rb_of")]
+        in_f = [F[w] for w in lay_d[0].input_modes()]
+        kw = dict(num_row_blocks=mp.num_row_blocks, block_rows=mp.block_rows,
+                  tile=mp.tile, rank_block=rank_block)
+        before = ks.LAUNCHES["mttkrp_slab_batched"]
+        out = ks.mttkrp_slab_batched(
+            *arr, in_f, chunks=ks.stack_chunks([p.rb_of for p in packs],
+                                               mp.num_row_blocks, cuda), **kw)
+        assert ks.LAUNCHES["mttkrp_slab_batched"] == before + 1
+        for b, p in enumerate(packs):
+            one = ks.mttkrp_slab(
+                *[a[b] for a in arr], [f[b] for f in in_f],
+                chunks=ks.slab_chunks(p.rb_of, p.num_row_blocks, cuda), **kw)
+            assert torch.equal(out[b], one)
+
+
+@pytest.mark.cuda
+def test_valued_kernel_matches_plain_with_signed_zeros_on_card(cuda):
+    """Run-time values with exact +0.0 and -0.0 residuals: the valued
+    entry against its plain version, and bitwise against the value-baked
+    launch on the same scattered values."""
+    t = random_sparse((257, 63, 5, 9), 5000, seed=3, distribution="powerlaw")
+    plan = make_plan(t, 4, block_rows=16, tile=64, device=cuda)
+    F = _factors(t.shape, 16, 4, cuda)
+    rng = np.random.default_rng(5)
+    vals = rng.standard_normal(t.nnz).astype(np.float32)
+    zero = rng.choice(t.nnz, size=400, replace=False)
+    vals[zero[:200]] = 0.0
+    vals[zero[200:]] = -0.0
+    for d in range(t.nmodes):
+        idxp, lrowsp, rb_of, chunks, _, perm, scatter = plan.device_structural(
+            d, "slab")
+        p = plan.packed(d)
+        in_f = [F[w] for w in plan.layouts[d].input_modes()]
+        kw = dict(num_row_blocks=p.num_row_blocks, block_rows=16, tile=64)
+        v = torch.as_tensor(vals, device=cuda)[perm]
+        before = ks.LAUNCHES["mttkrp_slab_valued"]
+        k = ks.mttkrp_slab_valued(idxp, v, scatter, lrowsp, rb_of, in_f,
+                                  chunks=chunks, **kw)
+        assert ks.LAUNCHES["mttkrp_slab_valued"] == before + 1
+        valsp = ks.scatter_slab_values(v, scatter, p.num_slabs * 64)
+        baked = ks.mttkrp_slab(idxp, valsp, lrowsp, rb_of, in_f, chunks=chunks,
+                               **kw)
+        assert torch.equal(k, baked)
+        plain = ks.mttkrp_slab_plain(idxp, valsp, lrowsp, rb_of, in_f, **kw)
+        mag = ks.mttkrp_slab_plain(idxp, valsp.abs(), lrowsp, rb_of,
+                                   [f.abs() for f in in_f], **kw)
+        torch.testing.assert_close(k, plain, rtol=0,
+                                   atol=1e-5 * float(mag.max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["cp", "nncp", "masked"])
+def test_batched_service_on_card(cuda, method):
+    """One batched launch per mode and sweep for the whole batch, and each
+    lane equal to the fused engine's run under the bucket plan."""
+    shape = (40, 7, 33, 5)
+    ts = [random_sparse(shape, 1500 - 100 * i, seed=i, distribution="powerlaw")
+          for i in range(3)]
+    eng = BatchedEngine(5, kappa=2, check_every=2)
+    before = ks.LAUNCHES["mttkrp_slab_batched"]
+    batch = eng.decompose_batch(ts, n_iters=4, tol=-1.0, seeds=[0, 1, 2],
+                                method=method)
+    assert ks.LAUNCHES["mttkrp_slab_batched"] - before == 4 * len(shape)
+    assert all(r.host_syncs == 3 for r in batch)
+    bplan = eng.bucket_plan(shape, 1500)
+    for i, t in enumerate(ts):
+        seq = cpd_als(t, 5, plan=make_plan(t, 2, partition=bplan), n_iters=4,
+                      check_every=2, tol=-1.0, seed=i, method=method)
+        np.testing.assert_allclose(batch[i].fits, seq.fits, atol=1e-5)

@@ -26,7 +26,8 @@ def _imported_modules(path: Path) -> list[str]:
 def test_import_leaves_jax_out():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     code = ("import sys, repro_torch, repro_torch.core.als_device, "
-            "repro_torch.convert, repro_torch.kernels.build; "
+            "repro_torch.convert, repro_torch.kernels.build, "
+            "repro_torch.methods, repro_torch.serve; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "print(bad); sys.exit(1 if bad else 0)")

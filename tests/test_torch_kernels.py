@@ -206,7 +206,7 @@ def test_cpu_wrapper_is_the_plain_version():
     in_f = _t([F[1], F[2]])
     arrays = [torch.as_tensor(a) for a in (packed.idx_packed, packed.vals_packed,
                                            packed.lrows_packed, packed.rb_of)]
-    before = ks.LAUNCHES
+    before = dict(ks.LAUNCHES)
     out = ks.mttkrp_slab(*arrays, in_f, chunks=None,
                          num_row_blocks=packed.num_row_blocks,
                          block_rows=8, tile=32, rank_block=2)
