@@ -25,6 +25,7 @@ then exits non-zero and prints no ``ok`` line.  It imports nothing of JAX.
 """
 from __future__ import annotations
 
+import functools
 import json
 import statistics
 import subprocess
@@ -152,6 +153,12 @@ def slab_bound(slots, W, chunk_ints, factor_rows, out_rows, value_bytes=None):
             "bytes": nbytes, "ops": ops}
 
 
+def dev_us(e) -> float:
+    """Device time of one ``key_averages()`` entry, in microseconds."""
+    return getattr(e, "self_device_time_total", None) or getattr(
+        e, "self_cuda_time_total", 0.0)
+
+
 def device_idle(torch, fn, clock):
     """Wall time, device busy time, idle share and top kernels of one
     ``fn()`` under ``torch.profiler`` (``fn`` has run once before)."""
@@ -166,16 +173,62 @@ def device_idle(torch, fn, clock):
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(
-            e, "self_cuda_time_total", 0.0)
-
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
     top = sorted(kernels, key=dev_us, reverse=True)[:8]
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms if kernels else None,
             "device_idle_share": (1.0 - busy_ms / wall_ms) if kernels else None,
             "top": [{"name": e.key[:60], "count": e.count, "ms": dev_us(e) / 1e3}
                     for e in top]}
+
+
+def pass_times(torch, fn, calls: int):
+    """Device time per call of the slab kernel's pass one
+    (``chunk_tiles_kernel``) and pass two (both ``sum_ranges_kernel``
+    launches), from ``torch.profiler``'s ``key_averages()`` over ``calls``
+    calls of ``fn`` (made after the CUDA-event timing of the same calls)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split = {"pass_one_ms": 0.0, "pass_two_ms": 0.0}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        key = ("pass_one_ms" if "chunk_tiles_kernel" in e.key
+               else "pass_two_ms" if "sum_ranges_kernel" in e.key else None)
+        if key:
+            split[key] += dev_us(e) / 1e3 / calls
+    check(split["pass_one_ms"] > 0 and split["pass_two_ms"] > 0,
+          f"the profiler saw no slab kernel: {split}")
+    return split
+
+
+def launch_facts(ks, lib, dev, rank, rank_block, block_rows, in_modes, shape):
+    """The launch shape of pass one for this mode: the input modes whose
+    factors it stages in shared memory, columns per thread, walkers,
+    shared memory and blocks resident per SM."""
+    cfg = ks.launch_config(rank, rank_block, block_rows,
+                           [shape[w] for w in in_modes],
+                           smem_limit=ks.shared_memory_per_block(dev))
+    return {"staged_inputs": [w for i, w in enumerate(in_modes)
+                              if cfg.staged_mask >> i & 1],
+            "cols": cfg.cols, "walkers": cfg.walkers, "smem": cfg.smem,
+            "blocks_per_sm": ks.blocks_per_sm(lib, cfg, len(in_modes), False, dev)}
+
+
+def host_ms(torch, clock, fn, calls: int) -> float:
+    """Host time per call of ``fn`` (what it takes to queue its work),
+    over ``calls`` calls queued back to back."""
+    torch.cuda.synchronize()
+    t0 = clock.now()
+    for _ in range(calls):
+        fn()
+    per_call = (clock.now() - t0) * 1e3 / calls
+    torch.cuda.synchronize()
+    return per_call
 
 
 def mttkrp_f64(torch, idx_packed, vals_packed, lrows_packed, rb_of, factors, *,
@@ -235,8 +288,7 @@ def main() -> int:
     build.load_library()
     build_s = clock.now() - t0
     log = build.library_path(build.CSRC / "mttkrp_slab.cu").with_suffix(".log")
-    ptxas = [ln.strip() for ln in log.read_text().splitlines()
-             if "registers" in ln] if log.exists() else []
+    ptxas = build.ptxas_summary(log.read_text()) if log.exists() else []
     emit({"phase": "device", "nvidia_smi": smi,
           "device": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
@@ -545,21 +597,25 @@ def main() -> int:
                   tile=p.tile)
         rb = plan.mode_plan(d, RANK).rank_block
         slots = p.num_slabs * p.tile
-        chunk_ints = int(chunks.chunk_slab.numel() + chunks.rb_chunk_ptr.numel())
+        chunk_ints = chunks.numel()
         factor_rows = sum(t.shape[w] for w in others)
         out_rows = p.num_row_blocks * p.block_rows
         bound = slab_bound(slots, len(others), chunk_ints, factor_rows, out_rows)
-        ms = cuda_ms(torch, lambda: ks.mttkrp_slab(
-            idxp, valsp, lrowsp, rb_of, in_f, chunks=chunks, rank_block=rb, **kw),
-            TIMED_LAUNCHES)
+        baked = functools.partial(ks.mttkrp_slab, idxp, valsp, lrowsp, rb_of, in_f,
+                                  chunks=chunks, rank_block=rb, **kw)
+        ms = cuda_ms(torch, baked, TIMED_LAUNCHES)
+        split = pass_times(torch, baked, TIMED_LAUNCHES)
+        facts = launch_facts(ks, build.load_library(), dev, RANK, rb, p.block_rows,
+                             others, t.shape)
+        host = host_ms(torch, clock, baked, TIMED_LAUNCHES)
         plain_ms = cuda_ms(torch, lambda: ks.mttkrp_slab_plain(
             idxp, valsp, lrowsp, rb_of, in_f, **kw), 5)
         lib, krp_bytes = library_mttkrp(torch, np, t.indices, t.shape, d,
                                         t.values, in_f)
         library_ms = cuda_ms(torch, lib, 5)
-        per_mode.append({"mode": d, "ms": ms, "plain_ms": plain_ms,
-                         "library_ms": library_ms, "library_krp_bytes": krp_bytes,
-                         **bound})
+        per_mode.append({"mode": d, "ms": ms, **split, "host_ms": host, **facts,
+                         "plain_ms": plain_ms, "library_ms": library_ms,
+                         "library_krp_bytes": krp_bytes, **bound})
 
         v = resid[perm]
         valued = ks.mttkrp_slab_valued(idxp, v, scatter, lrowsp, rb_of, in_f,
@@ -576,16 +632,19 @@ def main() -> int:
         del valued, plain, exact, mag, vals_v
         scatter_ms = cuda_ms(torch, lambda: ks.scatter_slab_values(v, scatter, slots),
                              TIMED_LAUNCHES)
-        valued_ms = cuda_ms(torch, lambda: ks.mttkrp_slab_valued(
-            idxp, v, scatter, lrowsp, rb_of, in_f, chunks=chunks, rank_block=rb,
-            **kw), TIMED_LAUNCHES)
+        valued_fn = functools.partial(ks.mttkrp_slab_valued, idxp, v, scatter, lrowsp,
+                                      rb_of, in_f, chunks=chunks, rank_block=rb, **kw)
+        valued_ms = cuda_ms(torch, valued_fn, TIMED_LAUNCHES)
+        valued_split = pass_times(torch, valued_fn, TIMED_LAUNCHES)
         valued_plain_ms = cuda_ms(torch, lambda: ks.mttkrp_slab_plain(
             idxp, ks.scatter_slab_values(v, scatter, slots), lrowsp, rb_of, in_f,
             **kw), 5)
         vlib, _ = library_mttkrp(torch, np, t.indices, t.shape, d, resid, in_f)
         valued_modes.append({
             "mode": d, "ms": valued_ms, "scatter_ms": scatter_ms,
-            "kernel_ms": valued_ms - scatter_ms, "plain_ms": valued_plain_ms,
+            "kernel_ms": valued_ms - scatter_ms, **valued_split,
+            "host_ms": host_ms(torch, clock, valued_fn, TIMED_LAUNCHES),
+            "staged_inputs": facts["staged_inputs"], "plain_ms": valued_plain_ms,
             "library_ms": cuda_ms(torch, vlib, 5), "max_abs_err": err, "tol": tol,
             "plain_f32_err": plain_err,
             # the values (nnz float32) and their slots (nnz int64) replace
@@ -636,9 +695,10 @@ def main() -> int:
         in_f = [bfac[w] for w in others]
         kw = dict(num_row_blocks=nrb, block_rows=br, tile=tile)
         slots = int(idxp.shape[-1])
-        ms = cuda_ms(torch, lambda: ks.mttkrp_slab_batched(
-            idxp, valsp, lrowsp, rb_of, in_f, chunks=chunks, rank_block=rblk, **kw),
-            TIMED_LAUNCHES)
+        batched_fn = functools.partial(ks.mttkrp_slab_batched, idxp, valsp, lrowsp,
+                                       rb_of, in_f, chunks=chunks, rank_block=rblk, **kw)
+        ms = cuda_ms(torch, batched_fn, TIMED_LAUNCHES)
+        batched_split = pass_times(torch, batched_fn, TIMED_LAUNCHES)
         plain_ms = cuda_ms(torch, lambda: ks.mttkrp_slab_batched_plain(
             idxp, valsp, lrowsp, rb_of, in_f, **kw), 3)
         library_ms, krp_bytes = 0.0, 0
@@ -649,10 +709,14 @@ def main() -> int:
             del lib
             torch.cuda.empty_cache()
         batched_times.append({
-            "mode": d, "lanes": LANES, "ms": ms, "plain_ms": plain_ms,
+            "mode": d, "lanes": LANES, "ms": ms, **batched_split,
+            "host_ms": host_ms(torch, clock, batched_fn, TIMED_LAUNCHES),
+            **launch_facts(ks, build.load_library(), dev, RANK, rblk, br, others,
+                           UBER_SHAPE),
+            "plain_ms": plain_ms,
             "library_ms": library_ms, "library_krp_bytes_per_lane": krp_bytes,
             **slab_bound(LANES * slots, len(others),
-                         int(chunks.chunk_slab.numel() + chunks.rb_chunk_ptr.numel()),
+                         chunks.numel(),
                          LANES * sum(UBER_SHAPE[w] for w in others),
                          LANES * nrb * br)})
 

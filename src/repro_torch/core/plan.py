@@ -8,9 +8,10 @@
 
 The tiling is the port's own.  ``(block_rows, tile)`` default to
 (128, 256) unless pinned.  ``rank_block`` is the widest rank block whose
-pass-one block of the slab kernel fits the shared memory one block may
-use on the plan's device (``kernels.mttkrp_slab.max_rank_block``); the
-JAX package's TPU cost model (VMEM and MXU units) is not carried over.
+pass-one block of the slab kernel, for the mode's number of input
+factors, fits the shared memory one block may use on the plan's device
+(``kernels.mttkrp_slab.max_rank_block``); the JAX package's TPU cost
+model (VMEM and MXU units) is not carried over.
 """
 from __future__ import annotations
 
@@ -96,11 +97,12 @@ class PartitionPlan:
 
 def _mode_plan(num_rows: int, mode: int, rank: int, nnz_cap: int, *,
                block_rows: int | None, tile: int | None,
-               rank_block: int | None, smem_limit: int) -> ModePlan:
+               rank_block: int | None, smem_limit: int,
+               num_inputs: int) -> ModePlan:
     block_rows = kops.DEFAULT_BLOCK_ROWS if block_rows is None else int(block_rows)
     tile = kops.DEFAULT_TILE if tile is None else int(tile)
     if rank_block is None:
-        rank_block = max_rank_block(block_rows, smem_limit)
+        rank_block = max_rank_block(block_rows, smem_limit, num_inputs)
         if rank_block < 1:
             raise ValueError(
                 f"block_rows {block_rows} leaves no room for one rank column "
@@ -128,7 +130,8 @@ def plan_bucket(shape: tuple[int, ...], nnz_cap: int, rank: int,
     shape = tuple(int(s) for s in shape)
     modes = tuple(
         _mode_plan(shape[d], d, rank, nnz_cap, block_rows=block_rows,
-                   tile=tile, rank_block=rank_block, smem_limit=smem_limit)
+                   tile=tile, rank_block=rank_block, smem_limit=smem_limit,
+                   num_inputs=max(1, len(shape) - 1))
         for d in range(len(shape)))
     return PartitionPlan(shape=shape, nnz_cap=int(nnz_cap), rank=int(rank),
                          kappa=int(kappa), modes=modes)
@@ -143,7 +146,8 @@ def plan_layout(layout, rank: int, *, nnz_cap: int | None = None,
     cap = layout.nnz if nnz_cap is None else int(nnz_cap)
     return _mode_plan(layout.num_rows, layout.mode, rank, cap,
                       block_rows=block_rows, tile=tile,
-                      rank_block=rank_block, smem_limit=smem_limit)
+                      rank_block=rank_block, smem_limit=smem_limit,
+                      num_inputs=len(layout.input_modes()))
 
 
 def plan_tensor(tensor, rank: int, kappa: int = 1, *,

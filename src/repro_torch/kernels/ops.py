@@ -230,7 +230,7 @@ def mttkrp_packed(
     device = factors[0].device
     if rank_block is None:
         rank_block = max_rank_block(
-            packed.block_rows, shared_memory_per_block(device))
+            packed.block_rows, shared_memory_per_block(device), len(factors))
     idx, vals, lrows, rb_of = _packed_tensors(packed, device)
     out = mttkrp_slab(
         idx, vals, lrows, rb_of, list(factors),

@@ -6,6 +6,11 @@ a machine with the card and without JAX it runs as
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
+The kernel's launch shape depends on the inputs (``launch_config``):
+four columns per thread when the rank allows, one otherwise (rank 33);
+small factors staged in shared memory, large ones gathered from device
+memory.  The cases below cover each.
+
 Tolerance: the kernel and ``index_add_`` sum the same float32 terms in
 another order, so they may differ by a few ulps of each row's absolute
 sum (``sum |val * prod F|``), more where terms cancel.  Outputs are held
@@ -192,3 +197,115 @@ def test_batched_service_on_card(cuda, method):
         seq = cpd_als(t, 5, plan=make_plan(t, 2, partition=bplan), n_iters=4,
                       check_every=2, tol=-1.0, seed=i, method=method)
         np.testing.assert_allclose(batch[i].fits, seq.fits, atol=1e-5)
+
+
+def _close_to_plain(out, idxp, valsp, lrowsp, rb_of, in_f, **kw):
+    plain = ks.mttkrp_slab_plain(idxp, valsp, lrowsp, rb_of, in_f, **kw)
+    mag = ks.mttkrp_slab_plain(idxp, valsp.abs(), lrowsp, rb_of,
+                               [f.abs() for f in in_f], **kw)
+    torch.testing.assert_close(out, plain, rtol=0, atol=1e-5 * float(mag.max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,rank_block,dtype", [
+    (16, None, torch.float32), (33, 16, torch.float32),
+    (16, None, torch.bfloat16)])
+def test_entries_with_staged_and_gathered_factors_on_card(cuda, R, rank_block, dtype):
+    """Mode 0's inputs (20, 40, 9 rows) are all staged in shared memory;
+    modes 1-3 gather the 3000-row factor (192 KB at rank 16, beyond the
+    staging budget) from device memory and stage the rest.  Each entry
+    against its plain version."""
+    shape = (3000, 20, 40, 9)
+    t = random_sparse(shape, 40000, seed=21, distribution="powerlaw")
+    F = _factors(shape, R, 22, cuda, dtype)
+    plan = make_plan(t, 2, block_rows=16, tile=64, device=cuda)
+    rng = np.random.default_rng(23)
+    resid = rng.standard_normal(t.nnz).astype(np.float32)
+    for d in range(t.nmodes):
+        p = plan.packed(d)
+        in_modes = plan.layouts[d].input_modes()
+        in_f = [F[w] for w in in_modes]
+        rb = R if rank_block is None else rank_block
+        mask = ks.launch_config(R, rb, 16, [shape[w] for w in in_modes],
+                                smem_limit=ks.shared_memory_per_block(cuda)).staged_mask
+        assert mask == (0b111 if d == 0 else 0b110)
+        kw = dict(num_row_blocks=p.num_row_blocks, block_rows=16, tile=64)
+        idxp, valsp, lrowsp, rb_of, chunks, _ = plan.device_packed(d)
+        out = ks.mttkrp_slab(idxp, valsp, lrowsp, rb_of, in_f, chunks=chunks,
+                             rank_block=rank_block, **kw)
+        _close_to_plain(out, idxp, valsp, lrowsp, rb_of, in_f, **kw)
+        _, _, _, _, _, perm, scatter = plan.device_structural(d, "slab")
+        v = torch.as_tensor(resid, device=cuda)[perm]
+        valued = ks.mttkrp_slab_valued(idxp, v, scatter, lrowsp, rb_of, in_f,
+                                       chunks=chunks, rank_block=rank_block, **kw)
+        vals_v = ks.scatter_slab_values(v, scatter, p.num_slabs * 64)
+        _close_to_plain(valued, idxp, vals_v, lrowsp, rb_of, in_f, **kw)
+        # Two lanes: the packing and the same packing with run-time values.
+        lanes = [torch.stack([a, b]) for a, b in (
+            (idxp, idxp), (valsp, vals_v), (lrowsp, lrowsp), (rb_of, rb_of))]
+        bf = [torch.stack([f, f.flip(0)]) for f in in_f]
+        out2 = ks.mttkrp_slab_batched(
+            *lanes, bf, chunks=ks.stack_chunks([p.rb_of, p.rb_of],
+                                               p.num_row_blocks, cuda),
+            rank_block=rank_block, **kw)
+        _close_to_plain(out2[0], idxp, valsp, lrowsp, rb_of, in_f, **kw)
+        _close_to_plain(out2[1], idxp, vals_v, lrowsp, rb_of,
+                        [f.flip(0) for f in in_f], **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [0, 1])
+def test_many_chunks_capped_equals_uncapped_on_card(cuda, mode):
+    """Mode 0 (100 rows) is one row block of hundreds of chunks, so pass
+    two sums tens of groups; mode 1 (2000 rows) has 16 row blocks.  A
+    slab-capped packing's appended zero slabs and chunks change no bit."""
+    shape = (100, 2000, 300)
+    t = random_sparse(shape, 300_000, seed=31, distribution="powerlaw")
+    F = _factors(shape, 16, 32, cuda)
+    lay = make_plan(t, 1, device=cuda).layouts[mode]
+    in_f = [F[w] for w in lay.input_modes()]
+    outs = []
+    for cap in (None, 10_000):
+        p = pack_layout(lay, block_rows=128, tile=32, num_slabs_cap=cap)
+        arrays = [torch.as_tensor(a, device=cuda) for a in (
+            p.idx_packed, p.vals_packed, p.lrows_packed, p.rb_of)]
+        chunks = ks.slab_chunks(p.rb_of, p.num_row_blocks, cuda)
+        kw = dict(num_row_blocks=p.num_row_blocks, block_rows=128, tile=32)
+        outs.append(ks.mttkrp_slab(*arrays, in_f, chunks=chunks, **kw))
+        _close_to_plain(outs[-1], *arrays, in_f, **kw)
+    if mode == 0:
+        assert p.num_row_blocks == 1 and chunks.num_chunks >= 200
+    else:
+        assert p.num_row_blocks == 16
+    assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.cuda
+def test_unaligned_stream_and_factors_on_card(cuda):
+    """A tile of 30 slots leaves the slot stream without 16-byte alignment,
+    so the ring copies it 4 bytes at a time; factors at a 4-byte offset
+    take one column per thread.  Both against the plain version, and a
+    slab-capped packing bitwise equal to the uncapped one."""
+    shape = (300, 40, 20)
+    t = random_sparse(shape, 20000, seed=41, distribution="powerlaw")
+    lay = make_plan(t, 1, device=cuda).layouts[0]
+    rng = np.random.default_rng(42)
+    in_f = []
+    for w in lay.input_modes():
+        flat = torch.empty(shape[w] * 16 + 1, device=cuda)[1:]   # 4-byte offset
+        flat.copy_(torch.as_tensor(rng.standard_normal(shape[w] * 16).astype(np.float32)))
+        in_f.append(flat.view(shape[w], 16))
+    assert ks.launch_config(16, 16, 16, [f.shape[0] for f in in_f],
+                            aligned=False).cols == 1
+    outs = []
+    for cap in (None, 2000):
+        p = pack_layout(lay, block_rows=16, tile=30, num_slabs_cap=cap)
+        arrays = [torch.as_tensor(a, device=cuda) for a in (
+            p.idx_packed, p.vals_packed, p.lrows_packed, p.rb_of)]
+        kw = dict(num_row_blocks=p.num_row_blocks, block_rows=16, tile=30)
+        for factors in (in_f, [f.contiguous().clone() for f in in_f]):
+            out = ks.mttkrp_slab(*arrays, factors, chunks=ks.slab_chunks(
+                p.rb_of, p.num_row_blocks, cuda), **kw)
+            _close_to_plain(out, *arrays, factors, **kw)
+        outs.append(out)
+    assert torch.equal(outs[0], outs[1])

@@ -233,6 +233,151 @@ def test_slab_chunks_tile_each_row_block(chunk_slabs):
 
 
 def test_smem_sizing():
-    assert ks.walkers_for(16) == 16 and ks.walkers_for(300) == 1
+    # One column per thread (a rank block that is no multiple of 4): a
+    # walker is rank_block threads.  Four columns per thread: a quarter of
+    # that, and at most MAX_WALKERS walkers.
+    assert ks.walkers_for(16, cols=1) == 16 and ks.walkers_for(300, cols=1) == 1
+    assert ks.walkers_for(16) == 64 and ks.walkers_for(300) == 3
+    assert ks.walkers_for(4) == ks.MAX_WALKERS and ks.walkers_for(33) == 7
     rb = ks.max_rank_block(128, 232448)
     assert ks.smem_bytes(128, rb) <= 232448 < ks.smem_bytes(128, rb + 1)
+    # The ring, tile and carries at rank block 16 (64 walkers of 8 slots
+    # per stage) for 3 input factors: 2*5*64*8 + 128*16 + 64*16 + 64 words.
+    assert ks.stage_slots_for(64) == 8 and ks.stage_slots_for(16) == 32
+    assert ks.smem_bytes(128, 16, num_inputs=3) == 4 * (5120 + 2048 + 1024 + 64)
+    # Fewer inputs leave room for a wider rank block.
+    assert (ks.max_rank_block(128, 48 * 1024, 2)
+            > ks.max_rank_block(128, 48 * 1024, 3)
+            > ks.max_rank_block(128, 48 * 1024))
+
+
+def test_staged_inputs_smallest_first_within_budget():
+    # Chicago mode 1 at rank 16: the two small inputs fit, the 24,744-row
+    # factor (1.58 MB) does not.
+    assert ks.staged_inputs([24744, 77, 32], 16) == 0b110
+    assert ks.staged_inputs([24, 77, 32], 16) == 0b111
+    assert ks.staged_inputs([24, 77, 32], 16, budget=0) == 0
+    # Smallest first, ties by position: equal sizes stage the earlier one.
+    assert ks.staged_inputs([100, 100], 8, budget=100 * 8 * 4) == 0b01
+    rng = np.random.default_rng(0)
+    for _ in range(200):
+        rows = rng.integers(1, 3000, size=rng.integers(1, ks.MAX_INPUTS + 1))
+        rb = int(rng.choice([4, 8, 16, 33]))
+        budget = int(rng.integers(0, 64 * 1024))
+        mask = ks.staged_inputs(list(rows), rb, budget)
+        assert mask == ks.staged_inputs(list(rows), rb, budget)
+        staged = [w for w in range(len(rows)) if mask >> w & 1]
+        rest = [w for w in range(len(rows)) if not mask >> w & 1]
+        assert sum(int(rows[w]) * rb * 4 for w in staged) <= budget
+        if staged and rest:
+            assert max(rows[w] for w in staged) <= min(rows[w] for w in rest)
+        if rest:   # the smallest input left out would overflow the budget
+            nxt = min(rest, key=lambda w: (rows[w], w))
+            assert (sum(int(rows[w]) * rb * 4 for w in staged)
+                    + int(rows[nxt]) * rb * 4 > budget)
+
+
+@pytest.mark.parametrize("rank,rank_block,rows,aligned,cols,walkers,mask", [
+    (16, 16, [24, 77, 32], True, 4, 64, 0b111),        # chicago mode 0
+    (16, 16, [24744, 77, 32], True, 4, 64, 0b110),     # chicago mode 1
+    (33, 16, [24744, 77, 32], True, 1, 16, 0b110),     # rank 33: narrow
+    (16, 16, [24744, 77, 32], False, 1, 16, 0b110),    # unaligned factors
+    (8, 8, [30, 20], True, 4, 64, 0b11),
+    (16, 16, [183, 1140, 1717], True, 4, 64, 0b001),   # uber mode 1
+])
+def test_launch_config(rank, rank_block, rows, aligned, cols, walkers, mask):
+    limit = 232448
+    cfg = ks.launch_config(rank, rank_block, 128, rows, aligned=aligned,
+                           smem_limit=limit)
+    assert (cfg.cols, cfg.walkers, cfg.staged_mask) == (cols, walkers, mask)
+    assert cfg.threads == walkers * rank_block // cols <= ks.MAX_THREADS
+    staged = sum(r * rank_block * 4 for w, r in enumerate(rows) if mask >> w & 1)
+    assert cfg.smem == ks.smem_bytes(128, rank_block, cols, len(rows)) + staged
+    assert staged <= ks.STAGED_FACTOR_BYTES and cfg.smem <= limit
+    assert cfg.stage_slots % 4 == 0 and cfg.walkers * cfg.stage_slots <= ks.STAGE_SLOTS
+    # A block limit with no room beyond the ring, tile and carries stages
+    # nothing.
+    tight = ks.launch_config(rank, rank_block, 128, rows, aligned=aligned,
+                             smem_limit=ks.smem_bytes(128, rank_block, cols, len(rows)))
+    assert tight.staged_mask == 0
+
+
+@pytest.mark.parametrize("slabs_per_rb", [[5, 1, 7], [700, 3], [1, 1, 1, 1]])
+def test_group_tables_tile_each_row_block(slabs_per_rb):
+    rb_of = np.repeat(np.arange(len(slabs_per_rb)), slabs_per_rb).astype(np.int32)
+    nrb = len(slabs_per_rb)
+    ch = ks.slab_chunks(rb_of, nrb, "cpu", chunk_slabs=2)
+    cptr, gc, gptr = (t.numpy() for t in (ch.rb_chunk_ptr, ch.group_chunk,
+                                          ch.rb_group_ptr))
+    assert gc[0] == 0 and gc[-1] == ch.num_chunks and np.all(np.diff(gc) >= 1)
+    assert np.all(np.diff(gc) <= ks.GROUP_CHUNKS)
+    for b in range(nrb):
+        # Row block b's groups cover exactly its chunks, in order, and
+        # start at its first chunk.
+        starts = gc[gptr[b]:gptr[b + 1]]
+        assert starts[0] == cptr[b] and gc[gptr[b + 1]] == cptr[b + 1]
+        assert np.all((starts - cptr[b]) % ks.GROUP_CHUNKS == 0)
+    # Appended cap slabs keep every real group boundary.
+    capped = ks.slab_chunks(np.append(rb_of, [nrb - 1] * 97).astype(np.int32),
+                            nrb, "cpu", chunk_slabs=2)
+    assert set(gc[:-1]) <= set(capped.group_chunk.numpy()[:-1])
+    assert ch.numel() == sum(len(t) for t in (cptr, gc, gptr)) + ch.num_chunks + 1
+
+
+def test_stack_chunks_pads_with_empty_chunks_and_groups():
+    lanes = [np.repeat([0, 1], [600, 4]).astype(np.int32),
+             np.repeat([0, 1], [3, 601]).astype(np.int32),
+             np.repeat([0, 1], [302, 302]).astype(np.int32)]
+    st = ks.stack_chunks(lanes, 2, "cpu", chunk_slabs=8)
+    for b, rb_of in enumerate(lanes):
+        one = ks.slab_chunks(rb_of, 2, "cpu", chunk_slabs=8)
+        for name in ("chunk_slab", "group_chunk"):
+            own = getattr(one, name).numpy()
+            row = getattr(st, name)[b].numpy()
+            np.testing.assert_array_equal(row[:len(own)], own)
+            assert np.all(row[len(own):] == own[-1])   # empty padding
+        for name in ("rb_chunk_ptr", "rb_group_ptr"):
+            np.testing.assert_array_equal(getattr(st, name)[b].numpy(),
+                                          getattr(one, name).numpy())
+
+
+def test_library_hash_covers_headers(tmp_path):
+    from repro_torch.kernels import build
+
+    src = tmp_path / "k.cu"
+    src.write_text("// kernel")
+    (tmp_path / "common.cuh").write_text("// header")
+    (tmp_path / "notes.txt").write_text("not a source")
+    assert build.library_sources(src) == [src, tmp_path / "common.cuh"]
+    first = build.library_path(src)
+    (tmp_path / "notes.txt").write_text("edited")
+    assert build.library_path(src) == first
+    (tmp_path / "common.cuh").write_text("// edited header")
+    assert build.library_path(src) != first
+
+
+def test_ptxas_summary_names_each_instance():
+    from repro_torch.kernels import build
+
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN47_GLOBAL__N__a2_14_mttkrp_slab_cu_6"
+        "18chunk_tiles_kernelIfLi3ELi4EEEvNS_8SlabArgsE' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN18chunk_tiles_kernelIfLi3ELi4EEEv",
+        "    8 bytes stack frame, 12 bytes spill stores, 16 bytes spill loads",
+        "ptxas info    : Used 64 registers, used 1 barriers, 8 bytes cumulative stack size",
+        "ptxas info    : Compiling entry function '_ZN47_GLOBAL__N__a2_14_mttkrp_slab_cu_6"
+        "18chunk_tiles_kernelI13__nv_bfloat16Li2ELi1EEEvNS_8SlabArgsE' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 56 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_ZN47_GLOBAL__N__a2_14_mttkrp_slab_cu_6"
+        "17sum_ranges_kernelEPKiiPKfiPfi' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 32 registers, used 0 barriers",
+    ])
+    assert build.ptxas_summary(log) == [
+        "chunk_tiles_kernel<float,W=3,V=4>: 64 registers, "
+        "12 bytes spill stores, 16 bytes spill loads",
+        "chunk_tiles_kernel<bfloat16,W=2,V=1>: 56 registers, "
+        "0 bytes spill stores, 0 bytes spill loads",
+        "sum_ranges_kernel: 32 registers, 0 bytes spill stores, 0 bytes spill loads",
+    ]
