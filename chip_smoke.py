@@ -15,6 +15,16 @@ the launch counts set to 0 just before and read just after:
   batched   -- ``BatchedEngine.decompose_batch`` on 8 uber-shaped requests
                (183 x 24 x 1140 x 1717, 827,372 - 4,096 b nonzeros) for
                cp, nncp and masked;
+  stream    -- a ``StreamingCP`` cp session on the full uber stand-in
+               (3,309,490 nonzeros): a cold start on 3,000,000 shuffled
+               entries, then 4 increments of the rest, each with 8,000
+               re-observed coordinates; checkpoint and restore midway, one
+               increment against the segment backend, a cold refit;
+  stream_masked -- a masked session with weights, decay and eviction on
+               one uber-shaped request, against the segment backend;
+  service   -- ``DecompositionService`` on 16 uber-shaped requests (two
+               flushes of 8), synchronous and double-buffered, and one
+               streaming increment routed through ``ALSRunner``;
 
 checks each against the port's other backends or its sequential engine,
 and times the kernels beside their byte bounds, their plain versions and
@@ -41,8 +51,20 @@ TIMED_LAUNCHES = 21
 # nnz of frostt_like("uber", scale=0.25) less 4096 per lane.
 UBER_SHAPE = (183, 24, 1140, 1717)
 UBER_NNZ = 827_372
+LANE_STEP = 4_096
 LANES = 8
 METHODS = ("cp", "nncp", "masked")
+# The stream phase: the first STREAM_START of uber's shuffled entries, then
+# the rest in STREAM_INCREMENTS increments, each with STREAM_REPEATS
+# coordinates the session already holds (their values add).
+STREAM_START = 3_000_000
+STREAM_INCREMENTS = 4
+STREAM_REPEATS = 8_000
+# The masked stream: lane 0 of the uber bucket, MASKED_START entries first.
+MASKED_START = 600_000
+MASKED_DECAY, MASKED_FLOOR = 0.8, 0.1
+SERVICE_REQUESTS = 16
+SERVICE_CAP = 962_965         # the 16 requests' bucket under growth 1.25
 
 
 def emit(obj) -> None:
@@ -256,6 +278,330 @@ def eng_block(eng, prep, block: int):
     return _build_batched_block(eng.backend, len(prep.shape), eng.rank, prep.shape,
                                 prep.cap, prep.batch, eng.solver, block,
                                 prep.slab_meta, prep.method)
+
+
+def device_run(torch, clock, fn):
+    """``(fn(), wall s, device ms, slab-kernel ms)``: the wall time of
+    ``fn()`` to a synchronize, every CUDA activity it queued, and the slab
+    kernel's two passes alone, by ``torch.profiler`` (its set-up and the
+    event processing are outside the wall time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = clock.now()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = clock.now() - t0
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernel = [e for e in events if "chunk_tiles_kernel" in e.key
+              or "sum_ranges_kernel" in e.key]
+    return (out, wall, sum(dev_us(e) for e in events) / 1e3,
+            sum(dev_us(e) for e in kernel) / 1e3)
+
+
+def expected_session(np, streamed, shape):
+    """Sorted unique linearized keys of everything streamed so far, with
+    their summed values in float64: what the session must hold."""
+    from repro_torch.core.coo import _linearize
+
+    idx = np.concatenate([x.indices for x in streamed])
+    vals = np.concatenate([x.values for x in streamed]).astype(np.float64)
+    keys, inverse = np.unique(_linearize(idx, shape), return_inverse=True)
+    return keys, np.bincount(inverse.reshape(-1), weights=vals)
+
+
+def check_session(np, session, streamed, what):
+    from repro_torch.core.coo import _linearize
+
+    keys, sums = expected_session(np, streamed, session.tensor.shape)
+    got = _linearize(session.tensor.indices, session.tensor.shape)
+    check(np.array_equal(got, keys), f"{what}: session coordinates differ from "
+                                     f"the sorted unique streamed ones")
+    err = float(np.max(np.abs(session.tensor.values - sums)))
+    check(err <= 1e-5, f"{what}: session values off by {err}")
+    return err
+
+
+def increment(torch, clock, trace, session, delta, **kw):
+    """One ``update`` under the tracer and ``torch.profiler``: its result
+    and wall, merge, window (queueing plus the window reads) and host
+    preparation seconds, device and slab-kernel ms, and padding share."""
+    merged0 = session.merge_seconds
+    with trace.capture() as tr:
+        res, wall, dev_ms, kernel_ms = device_run(
+            torch, clock, lambda: session.update(delta, **kw))
+    windows = sum(r["dur_us"] for r in tr.records() if r["name"] == "als.window") / 1e6
+    merge_s = session.merge_seconds - merged0
+    cap, nnz = session.bucket_cap, session.tensor.nnz
+    return res, {"nnz": nnz, "bucket_cap": cap, "padding_share": (cap - nnz) / cap,
+                 "wall_s": wall, "merge_s": merge_s, "windows_s": windows,
+                 "host_prep_s": wall - merge_s - windows, "device_ms": dev_ms,
+                 "kernel_ms": kernel_ms, "iters": res.iters, "fit": res.fits[-1]}
+
+
+def stream_phase(torch, np, clock, ks, trace):
+    """A cp session on the full uber stand-in through the slab kernel."""
+    import shutil
+
+    from repro_torch.convert import stream_state_from_reference
+    from repro_torch.core.als_device import cpd_als_fused, sweep_cache_stats
+    from repro_torch.core.coo import SparseTensor, frostt_like
+    from repro_torch.methods import StreamingCP
+
+    t0 = clock.now()
+    full = frostt_like("uber", scale=1.0)
+    shape = tuple(full.shape)
+    rng = np.random.default_rng(17)
+    order = rng.permutation(full.nnz)
+    idx, vals = full.indices[order], full.values[order]
+    start = SparseTensor(idx[:STREAM_START], vals[:STREAM_START], shape)
+    deltas = []
+    for part in np.array_split(np.arange(STREAM_START, full.nnz), STREAM_INCREMENTS):
+        held = rng.choice(part[0], size=STREAM_REPEATS, replace=False)
+        deltas.append(SparseTensor(
+            np.concatenate([idx[part], idx[held]]),
+            np.concatenate([vals[part],
+                            rng.standard_normal(STREAM_REPEATS).astype(np.float32)]),
+            shape))
+    gen_s = clock.now() - t0
+
+    reset_launches(ks)
+    session = StreamingCP(RANK, backend="slab", check_every=2, refine_iters=2)
+    t0 = clock.now()
+    first = session.start(start, n_iters=10)
+    start_s = clock.now() - t0
+    sweeps = first.iters
+    streamed, rows, value_errs = [start], [], []
+    ckpt = ROOT / "build" / "stream_checkpoint"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    seg_fits = None
+    for k, delta in enumerate(deltas):
+        if k == STREAM_INCREMENTS - 1:
+            # The last increment on segment, from the same session state.
+            seg = stream_state_from_reference(
+                session, StreamingCP(RANK, backend="segment", check_every=2,
+                                     refine_iters=2))
+            slab_launches = dict(ks.LAUNCHES)
+            seg_fits = seg.update(delta).fits
+            check(ks.LAUNCHES == slab_launches, "the segment increment launched the kernel")
+            del seg
+        cap0, misses0 = session.bucket_cap, sweep_cache_stats()["misses"]
+        res, row = increment(torch, clock, trace, session, delta)
+        sweeps += res.iters
+        row["cache_misses"] = sweep_cache_stats()["misses"] - misses0
+        if session.bucket_cap == cap0:
+            check(row["cache_misses"] == 0,
+                  f"increment {k + 1} inside its bucket missed the window cache")
+        streamed.append(delta)
+        value_errs.append(check_session(np, session, streamed, f"increment {k + 1}"))
+        rows.append(row)
+        if k == 1:
+            session.save(ckpt)
+    launches = ks.LAUNCHES["mttkrp_slab"]
+    check(launches == 4 * sweeps,
+          f"stream: {launches} mttkrp_slab launches for {sweeps} sweeps of 4 modes")
+    seg_gap = fit_gap(np, res.fits, seg_fits)
+    check(seg_gap <= 1e-5, f"stream: slab increment differs from segment by {seg_gap}")
+
+    restored = StreamingCP.restore(ckpt)
+    check(restored.increments == 2 and restored.bucket_cap == rows[1]["bucket_cap"],
+          "stream: restored session counters differ")
+    for delta in deltas[2:]:
+        rres = restored.update(delta)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    restore_gap = max(fit_gap(np, rres.fits, res.fits),
+                      max(float(np.max(np.abs(a - b)))
+                          for a, b in zip(rres.factors, res.factors)))
+    check(restore_gap <= 1e-6, f"stream: restored session differs by {restore_gap}")
+
+    cold, refit_s, refit_dev_ms, _ = device_run(
+        torch, clock, lambda: cpd_als_fused(session.tensor, RANK, n_iters=10,
+                                            check_every=2))
+    mean_inc = sum(r["wall_s"] for r in rows) / len(rows)
+    out = {"phase": "stream", "shape": list(shape), "nnz": full.nnz, "rank": RANK,
+           "start_nnz": STREAM_START, "increments": STREAM_INCREMENTS,
+           "repeats_per_increment": STREAM_REPEATS, "generate_s": gen_s,
+           "start_s": start_s, "start_iters": first.iters, "launches": launches,
+           "sweeps": sweeps, "per_increment": rows, "max_value_err": max(value_errs),
+           "segment_fit_gap": seg_gap, "restore_gap": restore_gap,
+           "cold_refit_s": refit_s, "cold_refit_device_ms": refit_dev_ms,
+           "cold_refit_iters": cold.iters,
+           "mean_increment_s": mean_inc, "refit_over_increment": refit_s / mean_inc,
+           "stats": session.stats()}
+    del session, restored, full, idx, vals, deltas, streamed
+    torch.cuda.empty_cache()
+    return out
+
+
+def stream_masked_phase(torch, np, clock, ks, trace, lane):
+    """A masked session with weights, decay and eviction on one uber-shaped
+    request, on slab and on segment."""
+    from repro_torch.core.coo import SparseTensor
+    from repro_torch.core.plan import session_cap
+    from repro_torch.methods import StreamingCP
+    from repro_torch.methods.streaming import _canonical, _merge_sorted
+
+    shape = tuple(lane.shape)
+    order = np.random.default_rng(23).permutation(lane.nnz)
+    idx, vals = lane.indices[order], lane.values[order]
+    w = observation_weights(np, lane.nnz, seed=11)
+    parts = [np.arange(MASKED_START)] + np.array_split(
+        np.arange(MASKED_START, lane.nnz), STREAM_INCREMENTS)
+
+    def piece(p):
+        return SparseTensor(idx[p], vals[p], shape), w[p]
+
+    sessions, fits, rows = {}, {}, []
+    for backend in ("slab", "segment"):
+        reset_launches(ks)
+        s = StreamingCP(RANK, method="masked", backend=backend, check_every=2,
+                        refine_iters=2, decay=MASKED_DECAY, weight_floor=MASKED_FLOOR)
+        x, wx = piece(parts[0])
+        res = s.start(x, n_iters=10, weights=wx)
+        sweeps, fits[backend] = res.iters, [res.fits]
+        for p in parts[1:]:
+            x, wx = piece(p)
+            if backend == "slab":
+                res, row = increment(torch, clock, trace, s, x, weights=wx)
+                rows.append(row)
+            else:
+                res = s.update(x, weights=wx)
+            sweeps += res.iters
+            fits[backend].append(res.fits)
+        if backend == "slab":
+            launches = dict(ks.LAUNCHES)
+            check(launches["mttkrp_slab_valued"] == 4 * sweeps
+                  and launches["mttkrp_slab"] == 0,
+                  f"stream_masked: launches {launches} for {sweeps} sweeps")
+        sessions[backend] = s
+    gap = max(fit_gap(np, a, b) for a, b in zip(fits["slab"], fits["segment"]))
+    check(gap <= 1e-5, f"stream_masked: slab fits differ from segment by {gap}")
+
+    # Survivors by hand: decay every increment, evict below the floor
+    # when a merge would cross into a larger bucket.
+    s = sessions["slab"]
+    pol = s.policy
+    k_, i_, v_, w_ = _canonical(idx[parts[0]], vals[parts[0]], w[parts[0]], shape)
+    cap = session_cap(len(k_), 0, pol)
+    for p in parts[1:]:
+        d = _canonical(idx[p], vals[p], w[p], shape)
+        k_, i_, v_, w_ = _merge_sorted(k_, i_, v_, w_ * np.float32(MASKED_DECAY), *d)
+        if session_cap(len(k_), cap, pol) > cap:
+            keep = w_ >= np.float32(MASKED_FLOOR)
+            k_, i_, v_, w_ = k_[keep], i_[keep], v_[keep], w_[keep]
+        cap = session_cap(len(k_), cap, pol)
+    check(s.evictions > 0, "stream_masked: nothing was evicted")
+    check(s.evictions == sessions["segment"].evictions, "eviction counts differ")
+    survivors_equal = (np.array_equal(s.tensor.indices, i_)
+                       and np.array_equal(s.tensor.values, v_)
+                       and np.array_equal(s.session_weights, w_))
+    check(survivors_equal, "stream_masked: survivors differ from the hand-made set")
+    out = {"phase": "stream_masked", "shape": list(shape), "nnz": lane.nnz,
+           "start_nnz": MASKED_START, "increments": STREAM_INCREMENTS,
+           "decay": MASKED_DECAY, "weight_floor": MASKED_FLOOR,
+           "weights": "U[0,1], 5% set to 0, seed 11", "launches": launches,
+           "sweeps": sweeps, "evictions": s.evictions, "final_nnz": s.tensor.nnz,
+           "survivors_bitwise": survivors_equal, "segment_fit_gap": gap,
+           "per_increment": rows, "stats": s.stats()}
+    del sessions, s
+    torch.cuda.empty_cache()
+    return out
+
+
+def service_phase(torch, np, clock, ks, lanes, lane_results):
+    """16 uber-shaped requests through ``DecompositionService``, synchronous
+    and double-buffered, and one streaming increment through ``ALSRunner``."""
+    from repro_torch.core.coo import SparseTensor, random_sparse
+    from repro_torch.runtime import ALSRunner
+    from repro_torch.serve import BucketPolicy, DecompositionService
+
+    t0 = clock.now()
+    reqs = list(lanes) + [random_sparse(UBER_SHAPE, UBER_NNZ - LANE_STEP * (b % LANES), seed=b,
+                                        distribution="powerlaw")
+                          for b in range(LANES, SERVICE_REQUESTS)]
+    gen_s = clock.now() - t0
+    policy = BucketPolicy(mode="geometric", growth=1.25)
+    caps = {policy.bucket_for(x).nnz_cap for x in reqs}
+    check(caps == {SERVICE_CAP}, f"service: requests fall in buckets {caps}")
+
+    runs = {}
+    for db in (False, True):
+        # max_wait_s is out of reach: only max_batch triggers flush here.
+        svc = DecompositionService(RANK, backend="slab", max_batch=LANES, check_every=5,
+                                   policy=policy, max_wait_s=1e9, double_buffer=db)
+
+        def drive():
+            t_begin = clock.now()
+            futs = [svc.submit(x, n_iters=10, seed=b) for b, x in enumerate(reqs)]
+            svc.drain()
+            return [f.result() for f in futs], clock.now() - t_begin
+
+        reset_launches(ks)
+        if db:
+            (results, wall), _, busy_ms, _ = device_run(torch, clock, drive)
+        else:
+            (results, wall), busy_ms = drive(), None
+        launches = dict(ks.LAUNCHES)
+        snap = svc.snapshot()
+        events = list(svc.scheduler.metrics.batches)
+        check(snap["batches"] == 2 and [e.batch_size for e in events] == [LANES, LANES]
+              and snap["flush_triggers"]["max_batch"] == 2,
+              f"service (double_buffer={db}): flushes {[e.batch_size for e in events]}")
+        check(launches["mttkrp_slab_batched"] == 2 * 40
+              and launches["mttkrp_slab"] == launches["mttkrp_slab_valued"] == 0,
+              f"service (double_buffer={db}): launches {launches}, not 40 per flush")
+        check(all(r.host_syncs == 3 and r.iters == 10 for r in results),
+              f"service (double_buffer={db}): host syncs "
+              f"{sorted({r.host_syncs for r in results})}, not 3 per batch")
+        runs[db] = {"results": results, "wall_s": wall, "snapshot": snap,
+                    "launches": launches["mttkrp_slab_batched"],
+                    "device_busy_ms": busy_ms}
+    sync, dbuf = runs[False]["results"], runs[True]["results"]
+    bitwise = all(a.fits == b.fits and np.array_equal(a.weights, b.weights)
+                  and all(np.array_equal(x, y) for x, y in zip(a.factors, b.factors))
+                  for a, b in zip(sync, dbuf))
+    check(bitwise, "service: double-buffered results differ from synchronous ones")
+    lane_gap = max(fit_gap(np, sync[b].fits, lane_results[b].fits) for b in range(LANES))
+    check(lane_gap <= 1e-5, f"service: requests 0-7 differ from the batched phase by {lane_gap}")
+
+    # One streaming increment routed through the runner's service.
+    runner = ALSRunner(RANK, backend="slab")
+    session = runner.open_stream(session_id="smoke")
+    x = lanes[0]
+    session.start(SparseTensor(x.indices[:800_000], x.values[:800_000], x.shape), n_iters=4)
+    reset_launches(ks)
+    res = session.update(SparseTensor(x.indices[800_000:], x.values[800_000:], x.shape))
+    runner_launches = ks.LAUNCHES["mttkrp_slab_batched"]
+    gauge = runner.service.snapshot()["streams"]["smoke"]
+    check(res.engine == "batched" and runner_launches == 4 * res.iters
+          and gauge["increments"] == 1 and gauge["nnz"] == session.tensor.nnz,
+          f"runner stream: engine {res.engine}, {runner_launches} launches, gauge {gauge}")
+
+    def summary(db):
+        run = runs[db]
+        snap, wall = run["snapshot"], run["wall_s"]
+        disp = snap["dispatch"]
+        out = {"wall_s": wall, "decompositions_per_s": SERVICE_REQUESTS / wall,
+               "latency_p50_s": snap["latency_p50_s"],
+               "latency_p99_s": snap["latency_p99_s"],
+               "setup_s_per_flush": disp["assembly_s"] / disp["count"],
+               "execute_s_per_flush": disp["execute_s"] / disp["count"],
+               "overlap_s": disp["overlap_s"],
+               "overlap_fraction": disp["overlap_fraction"],
+               "launches": run["launches"], "cache_misses": snap["cache_misses"]}
+        if run["device_busy_ms"] is not None:
+            out["device_busy_ms"] = run["device_busy_ms"]
+            out["device_idle_share"] = 1.0 - run["device_busy_ms"] / (wall * 1e3)
+        return out
+
+    return {"phase": "service", "requests": SERVICE_REQUESTS, "shape": list(UBER_SHAPE),
+            "nnz_cap": SERVICE_CAP, "rank": RANK, "sweeps": 10, "check_every": 5,
+            "generate_s": gen_s, "sync": summary(False), "double_buffer": summary(True),
+            "double_buffer_bitwise": bitwise, "lane_fit_gap_vs_batched": lane_gap,
+            "runner_stream": {"launches": runner_launches, "iters": res.iters,
+                              "gauge": gauge, "fit": res.fits[-1]}}
 
 
 def main() -> int:
@@ -487,7 +833,7 @@ def main() -> int:
     from repro_torch.serve import BatchedEngine
 
     t0 = clock.now()
-    lanes = [random_sparse(UBER_SHAPE, UBER_NNZ - 4096 * b, seed=b,
+    lanes = [random_sparse(UBER_SHAPE, UBER_NNZ - LANE_STEP * b, seed=b,
                            distribution="powerlaw") for b in range(LANES)]
     lane_w = [observation_weights(np, x.nnz, seed=100 + b)
               for b, x in enumerate(lanes)]
@@ -527,7 +873,7 @@ def main() -> int:
     check(lane_equal, "a batched lane differs from its single launch")
     del out, plain, mag
 
-    batched = {}
+    batched, batched_res = {}, {}
     preps = {"cp": prep_cp}
     for method in METHODS:
         wkw = dict(weights=lane_w) if method == "masked" else {}
@@ -539,6 +885,7 @@ def main() -> int:
         t0 = clock.now()
         res_b = eng.execute_prepared(preps[method])
         run_s = clock.now() - t0
+        batched_res[method] = res_b
         b_launches = dict(ks.LAUNCHES)
         rescued = res_b[0].host_syncs - 3
         check(b_launches["mttkrp_slab_batched"] == 40 + rescued * 5 * 4
@@ -579,6 +926,25 @@ def main() -> int:
           "setup_s": gen_s, "plan": bplan.describe(),
           "lane_bitwise_single_launch": lane_equal, "kernel_modes": batched_modes,
           "methods": batched})
+
+    # -- stream, stream_masked, service -------------------------------------------
+    from repro_torch.obs import trace
+
+    # The profiler's first use sets up its tracing for seconds: not in a
+    # timed increment.
+    device_run(torch, clock, lambda: torch.ones(1, device=dev).sum())
+    new_phases = {}
+    for name, run in (
+            ("stream", lambda: stream_phase(torch, np, clock, ks, trace)),
+            ("stream_masked", lambda: stream_masked_phase(torch, np, clock, ks, trace,
+                                                          lanes[0])),
+            ("service", lambda: service_phase(torch, np, clock, ks, lanes,
+                                              batched_res["cp"]))):
+        t0 = clock.now()
+        out = run()
+        out["phase_s"] = clock.now() - t0
+        new_phases[name] = out
+        emit(out)
 
     # -- times -----------------------------------------------------------------
     # The value-baked entry on the main path's packings, and the valued
@@ -753,12 +1119,12 @@ def main() -> int:
           "batched_profile": {"sweeps": 2, "lanes": LANES, "method": "cp",
                               **batched_profile}})
 
-    def kernel_entry(name, modes, launches, err):
+    def kernel_entry(name, modes, launches, err, phases):
         return {
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/mttkrp_slab.cu",
             "replaces": "src/repro/kernels/mttkrp_pallas.py:166",
-            "launches": launches, "max_abs_err": err,
+            "launches": launches, "phases": phases, "max_abs_err": err,
             "ms": sum(m["ms"] for m in modes),
             "plain_ms": sum(m["plain_ms"] for m in modes),
             "bound_ms": sum(m["bound_ms"] for m in modes),
@@ -767,14 +1133,25 @@ def main() -> int:
             "library_ms": sum(m["library_ms"] for m in modes),
         }
 
+    # Launches per phase that ran the entry, each counted from 0 in its phase.
+    service = new_phases["service"]
     emit({"kernels": [
         kernel_entry("mttkrp_slab", per_mode, launches,
-                     max(m["max_abs_err"] for m in modes)),
+                     max(m["max_abs_err"] for m in modes),
+                     {"main_path": launches, "methods": nn_launches["mttkrp_slab"],
+                      "stream": new_phases["stream"]["launches"]}),
         kernel_entry("mttkrp_slab_valued", valued_modes,
                      mk_launches["mttkrp_slab_valued"],
-                     max(m["max_abs_err"] for m in valued_modes)),
+                     max(m["max_abs_err"] for m in valued_modes),
+                     {"methods": mk_launches["mttkrp_slab_valued"],
+                      "stream_masked": new_phases["stream_masked"]["launches"][
+                          "mttkrp_slab_valued"]}),
         kernel_entry("mttkrp_slab_batched", batched_times, batched_launches,
-                     max(m["max_abs_err"] for m in batched_modes)),
+                     max(m["max_abs_err"] for m in batched_modes),
+                     {"batched": batched_launches,
+                      "service": service["sync"]["launches"]
+                      + service["double_buffer"]["launches"]
+                      + service["runner_stream"]["launches"]}),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -5,7 +5,11 @@ is ``repro_torch.core.cpd.cpd_als`` -> ``core.als_device.cpd_als_fused``.
 ``cpd_als(method=...)`` also runs the decomposition methods of
 ``repro_torch.methods`` ('nncp', 'masked' with observation weights), and
 ``repro_torch.serve.BatchedEngine`` decomposes B same-bucket tensors in
-lockstep on one device.  Their MTTKRP runs through the hand-written
+lockstep on one device.  Users meet the service through
+``DecompositionService`` (micro-batching scheduler and metrics) or
+``runtime.ALSRunner``, and keep a decomposition current as nonzeros arrive
+with ``methods.StreamingCP`` (checkpointed through
+``checkpoint.CheckpointManager``).  Their MTTKRP runs through the hand-written
 Hopper kernel in ``csrc/mttkrp_slab.cu`` (the counterpart of the Pallas
 kernel in ``repro/kernels/mttkrp_pallas.py``).
 
@@ -16,10 +20,17 @@ PyTorch version instead.  The package imports torch and numpy only.
 from .core.als_device import cpd_als_fused
 from .core.coo import SparseTensor, frostt_like, low_rank_sparse, random_sparse
 from .core.cpd import CPDResult, cpd_als
+from .methods import StreamingCP
+from .runtime import ALSRunner
+from .serve import BatchedEngine, DecompositionService
 
 __all__ = [
+    "ALSRunner",
+    "BatchedEngine",
     "CPDResult",
+    "DecompositionService",
     "SparseTensor",
+    "StreamingCP",
     "cpd_als",
     "cpd_als_fused",
     "frostt_like",

@@ -64,3 +64,29 @@ def batch_to_host(states):
     return (tuple(np.stack([h[0][d] for h in hosts]) for d in range(N)),
             tuple(np.stack([h[1][d] for h in hosts]) for d in range(N)),
             np.stack([h[2] for h in hosts]))
+
+
+def stream_state_from_reference(ref, session):
+    """Load the host state of a reference ``StreamingCP`` (read by
+    attribute: shape, canonical keys, indices, values, entry weights,
+    bucket cap, seed, increment and eviction counts, and the factor state
+    ``(factors, grams, weights)``) into the port session ``session``,
+    which keeps its own configuration (rank, method, backend, policy,
+    decay, device).  Returns ``session``."""
+    if ref._keys is None:
+        raise ValueError("the reference session has not started")
+    session._shape = tuple(int(s) for s in ref._shape)
+    session._keys = np.array(ref._keys, dtype=np.int64)
+    session._idx = np.array(ref._idx)
+    session._vals = np.array(ref._vals, dtype=np.float32)
+    session._entry_w = (None if ref._entry_w is None
+                        else np.array(ref._entry_w, dtype=np.float32))
+    session._cap = int(ref._cap)
+    session.seed = int(ref.seed)
+    session.increments = int(ref.increments)
+    session.evictions = int(ref.evictions)
+    factors, grams, weights = ref._state
+    session._state = (tuple(np.array(F, dtype=np.float32) for F in factors),
+                      tuple(np.array(G, dtype=np.float32) for G in grams),
+                      np.array(weights, dtype=np.float32))
+    return session

@@ -49,6 +49,7 @@ from ..kernels import ref as kref
 from ..kernels.mttkrp_slab import (mttkrp_slab_batched, mttkrp_slab_valued,
                                    scatter_slab_values)
 from ..obs import clock as obs_clock
+from ..obs import trace as obs_trace
 from .coo import SparseTensor
 from .cpd import CPDResult
 from .mttkrp import MTTKRPPlan, make_plan, slab_backend, unrelabel_rows
@@ -639,21 +640,28 @@ def cpd_als_fused(
     last_fit = -np.inf
     it = 0
     windows_run: list[int] = []
+    tr = obs_trace.active()
     for b in range(n_blocks + (1 if rem else 0)):
         k = check_every if b < n_blocks else rem
         fn = sweep_k if b < n_blocks else sweep_rem
         start = state
-        state, fits_blk, ok = fn(start, mode_data_all, fit_data)
-        # The only in-window host sync: the last fit and the solve flag.
-        if ok is None:
-            f, healthy = float(fits_blk[-1]), True
-        else:
-            f, healthy = torch.stack([fits_blk[-1], ok.to(fits_blk.dtype)]).tolist()
-        host_syncs += 1
-        if not healthy:
-            state, fits_blk, _ = fn(start, mode_data_all, fit_data, rescue=True)
-            f = float(fits_blk[-1])
+        # A host span per window (queueing and its host read) when tracing.
+        with (obs_trace.NULL if tr is None else
+              tr.span("als.window", cat="als", backend=backend,
+                      method=method, window=b, sweeps=k)):
+            state, fits_blk, ok = fn(start, mode_data_all, fit_data)
+            # The only in-window host sync: the last fit and the solve flag.
+            if ok is None:
+                f, healthy = float(fits_blk[-1]), True
+            else:
+                f, healthy = torch.stack(
+                    [fits_blk[-1], ok.to(fits_blk.dtype)]).tolist()
             host_syncs += 1
+            if not healthy:
+                state, fits_blk, _ = fn(start, mode_data_all, fit_data,
+                                        rescue=True)
+                f = float(fits_blk[-1])
+                host_syncs += 1
         fits_dev.append(fits_blk)
         windows_run.append(k)
         it += k

@@ -19,8 +19,9 @@ caches and the batched service; a method owns only what differs:
   * ``weighted_fit`` -- the fit is the weighted observed-entry fit and
     the front doors accept per-entry ``weights=``;
   * ``stateful`` -- the method drives the substrate across calls through a
-    session of its own instead of a sweep (the reference's streaming),
-    so the sweep engines and the batched service refuse it.
+    session of its own instead of a sweep ('streaming'), so the sweep
+    engines and the batched service refuse it; ``session_factory`` builds
+    that session.
 """
 from __future__ import annotations
 
@@ -40,6 +41,7 @@ class MethodSpec:
     make_fit_data: Callable | None = None
     weighted_fit: bool = False
     stateful: bool = False
+    session_factory: Callable | None = None
 
     @property
     def valued_mode_data(self) -> bool:

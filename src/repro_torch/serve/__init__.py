@@ -4,14 +4,28 @@
                     helpers, bitwise the reference's.
   batched_engine -- B bucket-mates decomposed in lockstep: one launch of
                     the batched MTTKRP kernel per mode and sweep, per-lane
-                    freeze masks and convergence, one host read per window.
+                    freeze masks and convergence, one host read per window;
+                    a prepare/execute seam with uploads on a copy stream.
+  scheduler      -- per-bucket queues, futures, score-based flushes
+                    (max-batch, max-wait, aging, forced), row-density
+                    feedback into the bucket plan, double-buffered
+                    dispatch on one worker thread.
+  metrics        -- throughput, p50/p99 latency, padding overhead, batch
+                    occupancy, cache hit rates, dispatch overlap,
+                    streaming-session gauges, SLO health.
 
-The reference's scheduler, metrics and pod path are not ported yet.
+``runtime.ALSRunner`` fronts this service.  The reference's pod path
+(``mesh=``) is not ported.
 """
 from .batched_engine import BatchedEngine, batched_cache_stats
 from .buckets import Bucket, BucketPolicy, pad_tensor, pad_weights, repeat_pad
+from .metrics import BatchEvent, ServiceMetrics
+from .scheduler import (BatchScheduler, DecompositionFuture,
+                        DecompositionService)
 
 __all__ = [
     "Bucket", "BucketPolicy", "pad_tensor", "pad_weights", "repeat_pad",
     "BatchedEngine", "batched_cache_stats",
+    "BatchScheduler", "DecompositionFuture", "DecompositionService",
+    "BatchEvent", "ServiceMetrics",
 ]

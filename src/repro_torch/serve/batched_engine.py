@@ -21,6 +21,19 @@ host read:
   * window functions are cached per (bucket shape, nnz cap, B, rank,
     backend, solver, window, method); ``batched_cache_stats()`` counts.
 
+Prepare / execute seam.  ``prepare_batch`` (the host half) builds every
+input of a batch on the host and, on the card, uploads it from pinned
+buffers on a copy stream of the engine's own, recording an event when the
+copies are queued.  ``execute_prepared`` (the device half) runs on the
+engine's compute stream, which waits on that event before its first
+launch; the staged tensors are marked as used by the compute stream so
+the caching allocator cannot hand their memory out early.  The scheduler's
+double-buffered dispatch therefore uploads flush N+1 while flush N's
+kernels run.  Both halves enter the engine's device and stream
+themselves, so either may run on any thread.  ``density`` (an observed
+per-bucket row-density profile from ``serve.metrics``) reaches the bucket
+plan (``core.plan.plan_bucket``).
+
 Each lane computes exactly what the one-lane sweep computes on its data,
 so a request's result does not depend on B or on its bucket-mates, and on
 the slab backend equals the fused engine's under the bucket's plan.
@@ -54,6 +67,7 @@ from ..device import resolve_device
 from ..kernels.mttkrp_slab import shared_memory_per_block, stack_chunks
 from ..kernels.ops import pack_layout
 from ..obs import clock as obs_clock
+from ..obs import trace as obs_trace
 from .buckets import pad_tensor, pad_weights, repeat_pad
 
 _BATCH_BACKENDS = ("slab", "segment", "coo")
@@ -65,6 +79,20 @@ def _freeze(active, new, old):
     return (tuple(torch.where(active, n, o) for n, o in zip(new[0], old[0])),
             tuple(torch.where(active, n, o) for n, o in zip(new[1], old[1])),
             torch.where(active, new[2], old[2]))
+
+
+def _tree_map(fn, obj):
+    """``obj`` with ``fn`` applied to every tensor in it (tuples, lists
+    and dataclasses rebuilt)."""
+    if isinstance(obj, torch.Tensor):
+        return fn(obj)
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_tree_map(fn, o) for o in obj)
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{
+            f.name: _tree_map(fn, getattr(obj, f.name))
+            for f in dataclasses.fields(obj)})
+    return obj
 
 
 def _make_window_runner(backend: str, nmodes: int, rank: int,
@@ -145,28 +173,38 @@ class BatchedEngine:
         self.device = resolve_device(device)
         self.solver = als_device.resolve_solver(solver, self.device)
         self.batch_quantum = max(1, int(batch_quantum))
+        # Single device: the scheduler reads these where the reference's
+        # pod path would name its mesh.
+        self.mesh = None
+        self.num_devices = 1
+        # On the card: batches are built on the host, uploaded on the copy
+        # stream and run on the compute stream (see the module docstring).
+        cuda = self.device.type == "cuda"
+        self._host = torch.device("cpu") if cuda else self.device
+        self.stream = torch.cuda.Stream(self.device) if cuda else None
+        self._copy_stream = torch.cuda.Stream(self.device) if cuda else None
 
     # -- data staging -------------------------------------------------------
 
-    def bucket_plan(self, shape: tuple[int, ...],
-                    nnz_cap: int) -> plan_mod.PartitionPlan:
+    def bucket_plan(self, shape: tuple[int, ...], nnz_cap: int,
+                    density: tuple | None = None) -> plan_mod.PartitionPlan:
         """The static plan a (shape, nnz_cap) bucket runs under, shared with
         the fused engine (``make_plan(t, kappa, partition=...)``).  Its slab
         caps and tilings are a function of the bucket alone, so every
-        bucket-mate packs to the same array shapes."""
+        bucket-mate packs to the same array shapes.  ``density`` moves
+        only the plan's segment partitioning (``core.plan``)."""
         return plan_mod.plan_bucket(
             tuple(int(s) for s in shape), int(nnz_cap), self.rank, self.kappa,
-            smem_limit=shared_memory_per_block(self.device))
+            smem_limit=shared_memory_per_block(self.device), density=density)
 
     def _stack_slab(self, source: list[SparseTensor], nnz_cap: int,
-                    structural: bool):
+                    structural: bool, density, dev):
         """Pack each source tensor to the bucket plan's slab cap and stack
-        the packings along a leading lane dimension.  ``structural=True``
-        (masked) ships the layout permutation and the value scatter
-        instead of baked values."""
-        dev = self.device
+        the packings along a leading lane dimension, as tensors on
+        ``dev``.  ``structural=True`` (masked) ships the layout
+        permutation and the value scatter instead of baked values."""
         N = source[0].nmodes
-        bplan = self.bucket_plan(tuple(source[0].shape), nnz_cap)
+        bplan = self.bucket_plan(tuple(source[0].shape), nnz_cap, density)
         lanes = [[] for _ in range(N)]
         for t in source:
             for d, lay in enumerate(build_all_mode_layouts(t, self.kappa)):
@@ -201,10 +239,10 @@ class BatchedEngine:
                                       row_perms))
         return tuple(mode_data_all), bplan.slab_meta()
 
-    def _lane_mode_data(self, source: list[SparseTensor], structural: bool):
+    def _lane_mode_data(self, source: list[SparseTensor], structural: bool,
+                        dev):
         """Per-lane mode data of the segment and coo backends, indexed
         ``[mode][lane]``."""
-        dev = self.device
         N = source[0].nmodes
         per_lane = []
         for t in source:
@@ -222,9 +260,9 @@ class BatchedEngine:
         return tuple([lane[d] for lane in per_lane] for d in range(N))
 
     def _stack_batch(self, tensors: list[SparseTensor], nnz_cap: int,
-                     spec, weights: Sequence | None):
-        """``(mode_data_all, fit_data per lane, slab_meta)`` of a batch."""
-        dev = self.device
+                     spec, weights: Sequence | None, density, dev):
+        """``(mode_data_all, fit_data per lane, slab_meta)`` of a batch, as
+        tensors on ``dev``."""
         structural = spec is not None and spec.valued_mode_data
         if structural:
             source = [pad_tensor(t, nnz_cap) for t in tensors]
@@ -245,10 +283,10 @@ class BatchedEngine:
         else:
             fit_data = [als_device.make_fit_data(t, dev) for t in source]
         if self.backend == "slab":
-            mode_data_all, slab_meta = self._stack_slab(source, nnz_cap,
-                                                        structural)
+            mode_data_all, slab_meta = self._stack_slab(
+                source, nnz_cap, structural, density, dev)
             return mode_data_all, fit_data, slab_meta
-        return self._lane_mode_data(source, structural), fit_data, None
+        return self._lane_mode_data(source, structural, dev), fit_data, None
 
     # -- driver -------------------------------------------------------------
 
@@ -263,10 +301,12 @@ class BatchedEngine:
         method: str = "cp",
         init_states: Sequence[tuple | None] | None = None,
         weights: Sequence | None = None,
+        density: tuple | None = None,
     ) -> "_PreparedBatch | None":
         """Host half of a batch decomposition: validation, batch-quantum
-        padding, packing and upload, init states.  Returns None for an
-        empty batch; ``execute_prepared`` runs the result."""
+        padding, packing, init states, then the upload (see the module
+        docstring).  Returns None for an empty batch; ``execute_prepared``
+        runs the result.  ``density`` reaches the bucket plan."""
         tensors = list(tensors)
         if not tensors:
             return None
@@ -307,8 +347,9 @@ class BatchedEngine:
             if weights is not None:
                 weights = repeat_pad(weights, B)
 
+        host = self._host
         mode_data_all, fit_data, slab_meta = self._stack_batch(
-            tensors, cap, spec, weights)
+            tensors, cap, spec, weights, density, host)
         init_fn = (spec.init_state_host if spec is not None
                    and spec.init_state_host is not None
                    else als_device.init_state_host)
@@ -317,28 +358,53 @@ class BatchedEngine:
                 *(init_states[i] if init_states is not None
                   and init_states[i] is not None
                   else init_fn(shape, self.rank, int(seeds[i]))),
-                device=self.device)
+                device=host)
             for i in range(B)]
-        dev = self.device
         carry = (states,
-                 torch.ones((B,), dtype=torch.bool, device=dev),
-                 torch.full((B,), -torch.inf, dtype=torch.float32, device=dev),
-                 torch.zeros((B,), dtype=torch.int32, device=dev))
-        return _PreparedBatch(
+                 torch.ones((B,), dtype=torch.bool, device=host),
+                 torch.full((B,), -torch.inf, dtype=torch.float32, device=host),
+                 torch.zeros((B,), dtype=torch.int32, device=host))
+        prep = _PreparedBatch(
             requested=requested, batch=B, shape=shape, cap=cap, method=method,
             carry=carry, mode_data_all=mode_data_all, fit_data=fit_data,
-            tol_dev=torch.as_tensor(np.asarray(tol_b, np.float32), device=dev),
+            tol_dev=torch.as_tensor(np.asarray(tol_b, np.float32), device=host),
             max_iters_dev=torch.as_tensor(np.asarray(n_iters_b, np.int32),
-                                          device=dev),
+                                          device=host),
             max_iters=int(max(n_iters_b)), slab_meta=slab_meta,
             t_start=t_start)
+        return self._upload(prep)
+
+    def _upload(self, prep: "_PreparedBatch") -> "_PreparedBatch":
+        """Stage a host-built batch on the card: pinned buffers, copies
+        queued on the copy stream, an event recorded after the last one."""
+        if self.stream is None:
+            return prep
+        dev = self.device
+
+        def stage(t):
+            out = t.pin_memory().to(dev, non_blocking=True)
+            # allocated on the copy stream, used on the compute stream
+            out.record_stream(self.stream)
+            return out
+
+        with torch.cuda.device(dev), torch.cuda.stream(self._copy_stream):
+            staged = _tree_map(stage, prep)
+            staged.ready = torch.cuda.Event()
+            staged.ready.record(self._copy_stream)
+        return staged
 
     def execute_prepared(self, prep: "_PreparedBatch | None"
                          ) -> list[CPDResult]:
-        """Device half: run a prepared batch and materialize its results."""
+        """Device half: run a prepared batch and materialize its results.
+        On the card it runs on the engine's compute stream, after the
+        batch's uploads."""
         if prep is None:
             return []
-        return self._execute_loop(prep)
+        if self.stream is None:
+            return self._execute_loop(prep)
+        with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
+            self.stream.wait_event(prep.ready)
+            return self._execute_loop(prep)
 
     def decompose_batch(
         self,
@@ -351,6 +417,7 @@ class BatchedEngine:
         method: str = "cp",
         init_states: Sequence[tuple | None] | None = None,
         weights: Sequence | None = None,
+        density: tuple | None = None,
     ) -> list[CPDResult]:
         """Decompose B same-shape tensors in lockstep.
 
@@ -360,11 +427,14 @@ class BatchedEngine:
         method's seeded init).  ``weights`` is an optional per-tensor list
         of entry-weight vectors (canonical order; ``None`` means all ones)
         for weighted-fit methods.  ``nnz_cap`` defaults to the largest
-        request's nnz.  Results carry per-tensor factors, fits and iters;
-        ``total_seconds`` and ``host_syncs`` are the batch's."""
+        request's nnz.  ``density`` (per-mode observed row-density
+        profiles) reaches the bucket plan.  Results carry per-tensor
+        factors, fits and iters; ``total_seconds`` and ``host_syncs`` are
+        the batch's."""
         return self.execute_prepared(self.prepare_batch(
             tensors, n_iters=n_iters, tol=tol, seeds=seeds, nnz_cap=nnz_cap,
-            method=method, init_states=init_states, weights=weights))
+            method=method, init_states=init_states, weights=weights,
+            density=density))
 
     def _execute_loop(self, prep: "_PreparedBatch") -> list[CPDResult]:
         """The window loop: one host read per window (the active mask and
@@ -374,25 +444,30 @@ class BatchedEngine:
         fits_dev: list = []
         host_syncs = 0
         it = 0
+        tr = obs_trace.active()
         while it < prep.max_iters:
             k = min(self.check_every, prep.max_iters - it)
             fn = _build_batched_block(
                 self.backend, N, self.rank, prep.shape, prep.cap, B,
                 self.solver, k, prep.slab_meta, prep.method)
             start = carry
-            carry, fits_blk, ok = fn(start, prep.mode_data_all, prep.fit_data,
-                                     prep.tol_dev, prep.max_iters_dev)
-            flags = carry[1].to(torch.float32)
-            if ok is not None:
-                flags = torch.cat([flags, ok.to(torch.float32)[None]])
-            flags = flags.tolist()
-            host_syncs += 1
-            if ok is not None and not flags[-1]:
-                carry, fits_blk, _ = fn(start, prep.mode_data_all,
-                                        prep.fit_data, prep.tol_dev,
-                                        prep.max_iters_dev, rescue=True)
-                flags = carry[1].to(torch.float32).tolist()
+            with (obs_trace.NULL if tr is None else
+                  tr.span("batched.window", cat="serve", backend=self.backend,
+                          B=B, sweeps=k, method=prep.method)):
+                carry, fits_blk, ok = fn(start, prep.mode_data_all,
+                                         prep.fit_data, prep.tol_dev,
+                                         prep.max_iters_dev)
+                flags = carry[1].to(torch.float32)
+                if ok is not None:
+                    flags = torch.cat([flags, ok.to(torch.float32)[None]])
+                flags = flags.tolist()
                 host_syncs += 1
+                if ok is not None and not flags[-1]:
+                    carry, fits_blk, _ = fn(start, prep.mode_data_all,
+                                            prep.fit_data, prep.tol_dev,
+                                            prep.max_iters_dev, rescue=True)
+                    flags = carry[1].to(torch.float32).tolist()
+                    host_syncs += 1
             fits_dev.append(fits_blk)
             it += k
             if not any(flags[:B]):
@@ -457,3 +532,4 @@ class _PreparedBatch:
     max_iters: int
     slab_meta: tuple | None
     t_start: float
+    ready: object = None      # CUDA event after the uploads (card only)

@@ -309,3 +309,82 @@ def test_unaligned_stream_and_factors_on_card(cuda):
             _close_to_plain(out, *arrays, factors, **kw)
         outs.append(out)
     assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.cuda
+def test_double_buffered_service_equals_sync_on_card(cuda):
+    """B = 8 per flush, two flushes: the double-buffered results (uploads on
+    the copy stream, execution on the dispatch worker) are bitwise the
+    synchronous ones, and every flush launches the batched entry once per
+    mode and sweep."""
+    from repro_torch.serve import BucketPolicy, DecompositionService
+
+    ts = [random_sparse((40, 30, 20), 3600 - 37 * i, seed=i,
+                        distribution="powerlaw") for i in range(16)]
+    out = {}
+    for db in (False, True):
+        svc = DecompositionService(8, check_every=2, max_batch=8, max_wait_s=1e9,
+                                   policy=BucketPolicy(mode="geometric"),
+                                   double_buffer=db)
+        before = dict(ks.LAUNCHES)
+        futs = [svc.submit(t, n_iters=4, tol=-1.0, seed=i) for i, t in enumerate(ts)]
+        svc.drain()
+        out[db] = [f.result() for f in futs]
+        snap = svc.snapshot()
+        assert snap["batches"] == 2 and snap["flush_triggers"]["max_batch"] == 2
+        assert ks.LAUNCHES["mttkrp_slab_batched"] - before["mttkrp_slab_batched"] == 2 * 4 * 3
+        assert ks.LAUNCHES["mttkrp_slab"] == before["mttkrp_slab"]
+    for a, b in zip(out[False], out[True]):
+        assert a.fits == b.fits and a.host_syncs == b.host_syncs == 3
+        for Fa, Fb in zip(a.factors, b.factors):
+            assert np.array_equal(Fa, Fb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["cp", "masked"])
+def test_slab_stream_increment_matches_segment_on_card(cuda, method):
+    from repro_torch.core.coo import SparseTensor
+    from repro_torch.methods import StreamingCP
+
+    t = random_sparse((60, 40, 30), 6000, seed=5, distribution="powerlaw")
+    w = np.random.default_rng(6).uniform(0.2, 1.0, t.nnz).astype(np.float32)
+    wk = (lambda lo, hi: {"weights": w[lo:hi]} if method == "masked" else {})
+    res = {}
+    for backend in ("slab", "segment"):
+        s = StreamingCP(8, method=method, backend=backend)
+        s.start(SparseTensor(t.indices[:5000], t.values[:5000], t.shape),
+                n_iters=4, tol=-1.0, seed=1, **wk(0, 5000))
+        before = dict(ks.LAUNCHES)
+        res[backend] = s.update(SparseTensor(t.indices[5000:], t.values[5000:],
+                                             t.shape), **wk(5000, 6000))
+        entry = "mttkrp_slab_valued" if method == "masked" else "mttkrp_slab"
+        launched = ks.LAUNCHES[entry] - before[entry]
+        assert launched == (2 * 3 if backend == "slab" else 0)
+    gap = max(abs(a - b) for a, b in zip(res["slab"].fits, res["segment"].fits))
+    assert gap <= 1e-5
+
+
+@pytest.mark.cuda
+def test_checkpoint_saves_on_card_and_restores_onto_card(cuda, tmp_path):
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core.coo import SparseTensor
+    from repro_torch.methods import StreamingCP
+
+    F = _factors((7, 5), 4, 3, cuda)
+    m = CheckpointManager(tmp_path / "tree", async_save=False)
+    m.save(1, {"F": F, "lam": torch.ones(4, device=cuda)})
+    out, _ = m.restore(template={"F": F, "lam": torch.ones(4, device=cuda)})
+    assert all(a.device == cuda and torch.equal(a, b) for a, b in zip(out["F"], F))
+    out, _ = m.restore(template={"F": [f.cpu() for f in F], "lam": torch.ones(4)})
+    assert out["lam"].device.type == "cpu" and torch.equal(out["F"][0], F[0].cpu())
+
+    t = random_sparse((30, 20, 10), 2000, seed=9, distribution="powerlaw")
+    s1 = StreamingCP(4)
+    s1.start(SparseTensor(t.indices[:1500], t.values[:1500], t.shape), n_iters=4,
+             tol=-1.0)
+    s1.save(tmp_path / "sess")
+    s2 = StreamingCP.restore(tmp_path / "sess")
+    assert s2.device.type == "cuda"
+    delta = SparseTensor(t.indices[1500:], t.values[1500:], t.shape)
+    r1, r2 = s1.update(delta), s2.update(delta)
+    assert abs(r1.fits[-1] - r2.fits[-1]) <= 1e-6

@@ -1,5 +1,6 @@
 """The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor anything of the JAX package ``repro``."""
+neither JAX nor anything of the JAX package ``repro``, nor ``msgpack``
+(absent on the card's machine; the port's checkpoints are npz + JSON)."""
 import ast
 import os
 import subprocess
@@ -11,6 +12,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro", "msgpack")
 
 
 def _imported_modules(path: Path) -> list[str]:
@@ -27,9 +29,10 @@ def test_import_leaves_jax_out():
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     code = ("import sys, repro_torch, repro_torch.core.als_device, "
             "repro_torch.convert, repro_torch.kernels.build, "
-            "repro_torch.methods, repro_torch.serve; "
-            "bad = sorted(m for m in sys.modules "
-            "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
+            "repro_torch.methods, repro_torch.serve, repro_torch.obs, "
+            "repro_torch.checkpoint, repro_torch.runtime; "
+            f"bad = sorted(m for m in sys.modules "
+            f"if m.split('.')[0] in {FORBIDDEN!r}); "
             "print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
@@ -40,4 +43,4 @@ def test_import_leaves_jax_out():
 def test_no_jax_or_reference_imports(path):
     for name in _imported_modules(path):
         root = name.split(".")[0]
-        assert root not in ("jax", "jaxlib", "repro"), f"{path}: imports {name}"
+        assert root not in FORBIDDEN, f"{path}: imports {name}"

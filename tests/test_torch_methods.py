@@ -184,8 +184,12 @@ def test_weights_are_validated():
 
 
 def test_registry_lists_the_methods():
-    assert methods.list_methods() == ["cp", "masked", "nncp"]
+    from repro.methods import list_methods as r_list_methods
+
+    assert methods.list_methods() == ["cp", "masked", "nncp", "streaming"]
+    assert methods.list_methods() == r_list_methods()
     assert methods.batchable_methods() == ["cp", "masked", "nncp"]
+    assert methods.get_method("streaming").stateful
     masked = methods.get_method("masked")
     assert masked.valued_mode_data and masked.weighted_fit
     assert not methods.get_method("nncp").valued_mode_data
