@@ -28,7 +28,20 @@ the launch counts set to 0 just before and read just after:
 
 checks each against the port's other backends or its sequential engine,
 and times the kernels beside their byte bounds, their plain versions and
-one PyTorch library call.  Prints one JSON line per phase, then the
+one PyTorch library call.  Last comes
+
+  plan      -- the paper's scheme choice on the chicago and uber
+               stand-ins at kappa = the card's SM count: per mode the
+               threshold rule's scheme, the cost rule's under the
+               reference's default profile and under one measured here
+               (memory rate from a 1 GiB copy, update rate from an
+               ``index_add_``), and the slab kernel's time under each
+               forced scheme; the fig-5 memory report beside the bytes
+               the plan allocates; a ``.tns`` round trip of an uber-shaped
+               request; ``calibrate_tensor`` and the Hopper tile model
+               fitted to timed tilings; no builds on a repeated shape.
+
+Prints one JSON line per phase, then the
 ``{"kernels": ...}`` line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the script
 then exits non-zero and prints no ``ok`` line.  It imports nothing of JAX.
@@ -604,6 +617,288 @@ def service_phase(torch, np, clock, ks, lanes, lane_results):
                               "gauge": gauge, "fit": res.fits[-1]}}
 
 
+def kernel_vs_plain_err(torch, ks, data, in_f, meta, what) -> tuple[float, float]:
+    """``(max abs error, tolerance)`` of the slab kernel against its plain
+    version on one mode's device data ``(idx, vals, lrows, rb_of, chunks,
+    row_perm)`` at ``meta = (row blocks, block_rows, tile, rank_block)``.
+    Tolerance: float32 sums of up to ~2.2e5 terms taken in two orders
+    differ by a small multiple of eps times the absolute sum (about 1.5e-7
+    of it measured on the H100); hold them to 1e-5 of it."""
+    idxp, valsp, lrowsp, rb_of, chunks, _ = data
+    nrb, br, tile, rblk = meta
+    kw = dict(num_row_blocks=nrb, block_rows=br, tile=tile)
+    k = ks.mttkrp_slab(idxp, valsp, lrowsp, rb_of, in_f, chunks=chunks,
+                       rank_block=rblk, **kw)
+    plain = ks.mttkrp_slab_plain(idxp, valsp, lrowsp, rb_of, in_f, **kw)
+    mag = ks.mttkrp_slab_plain(idxp, valsp.abs(), lrowsp, rb_of,
+                               [f.abs() for f in in_f], **kw)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(k).all()), f"{what}: non-finite kernel output")
+    return float((k - plain).abs().max()), 1e-5 * float(mag.max())
+
+
+def measured_profile_bw(torch, dev) -> dict:
+    """The card's memory rate from a device-to-device copy of 1 GiB:
+    bytes read plus bytes written over the median copy time."""
+    n = 2 ** 28                                  # float32: 1 GiB
+    src = torch.empty(n, dtype=torch.float32, device=dev).fill_(1.0)
+    dst = torch.empty_like(src)
+    ms = cuda_ms(torch, lambda: dst.copy_(src), 5)
+    del src, dst
+    torch.cuda.empty_cache()
+    return {"copy_bytes": 4 * n, "copy_ms": ms, "bw": 2 * 4 * n / (ms * 1e-3)}
+
+
+def atomic_tput(torch, np, t, d, dev) -> float:
+    """Shared-output updates per second on the card: an ``index_add_`` of
+    nnz x RANK products into an (I_d, RANK) tensor at mode d's rows."""
+    rows = torch.as_tensor(t.indices[:, d].astype(np.int64), device=dev)
+    src = torch.ones((t.nnz, RANK), dtype=torch.float32, device=dev)
+    out = torch.zeros((t.shape[d], RANK), dtype=torch.float32, device=dev)
+    ms = cuda_ms(torch, lambda: out.index_add_(0, rows, src), 5)
+    del rows, src, out
+    return t.nnz * RANK / (ms * 1e-3)
+
+
+def plan_phase(torch, np, clock, ks, dev, chicago, lane0):
+    """The paper's scheme choice on the card: per mode of the chicago and
+    uber stand-ins at kappa = the card's SM count, the threshold rule's and
+    the cost rule's schemes (the reference's default profile and one
+    measured here), and the slab kernel's time under each forced scheme;
+    the fig-5 memory report; a ``.tns`` round trip; calibration and the
+    Hopper tile model's fit; and the build ledger on a repeated shape."""
+    import dataclasses
+    import math
+
+    from repro_torch.core.als_device import sweep_trace_stats
+    from repro_torch.core.coo import SparseTensor, frostt_like
+    from repro_torch.core.cpd import cpd_als
+    from repro_torch.core.layout import build_mode_layout, format_memory_report
+    from repro_torch.core.load_balance import (DeviceProfile, Scheme, choose_scheme,
+                                               scheme_cost)
+    from repro_torch.core.mttkrp import make_plan
+    from repro_torch.data import read_tns, write_tns
+    from repro_torch.kernels import ops as kops
+    from repro_torch.obs import LEDGER, calibrate, trace
+
+    t_phase = clock.now()
+    props = torch.cuda.get_device_properties(dev)
+    kappa = int(props.multi_processor_count)
+    default = DeviceProfile()
+    bw = measured_profile_bw(torch, dev)
+    t0 = clock.now()
+    uber = frostt_like("uber", scale=1.0)
+    gen_s = clock.now() - t0
+    rng = np.random.default_rng(29)
+    S1, S2 = Scheme.INDEX_PARTITION, Scheme.NNZ_PARTITION
+    reset_launches(ks)
+    compare_launches = 0
+    rules = ("threshold", "cost_default", "cost_measured")
+    tensors, ratios = {}, {r: [] for r in rules}
+    memory = None
+    for name, t in (("chicago", chicago), ("uber", uber)):
+        facs = [torch.as_tensor(rng.standard_normal((I, RANK)).astype(np.float32),
+                                device=dev) for I in t.shape]
+        t0 = clock.now()
+        plans = {1: make_plan(t, kappa, scheme=S1, device=dev),
+                 2: make_plan(t, kappa, scheme=S2, device=dev)}
+        layouts_s = clock.now() - t0
+        t0 = clock.now()
+        for sc, p in plans.items():
+            if name == "chicago" and sc == 1:
+                torch.cuda.synchronize()
+                mem0 = torch.cuda.memory_allocated(dev)
+            for d in range(t.nmodes):
+                p.device_packed(d)
+            if name == "chicago" and sc == 1:
+                torch.cuda.synchronize()
+                grown = torch.cuda.memory_allocated(dev) - mem0
+                report = format_memory_report(t, p.layouts)
+                memory = {"report": report, "allocated_growth_bytes": grown,
+                          "growth_over_copies": grown / report["copies_bytes"],
+                          "factors_bytes_rank16": sum(int(I) * RANK * 4
+                                                      for I in t.shape)}
+        pack_s = clock.now() - t0
+        modes = []
+        for d in range(t.nmodes):
+            row = {"mode": d, "rows": int(t.shape[d]),
+                   "atomic_tput": atomic_tput(torch, np, t, d, dev)}
+            measured = DeviceProfile(bw=bw["bw"], atomic_tput=row["atomic_tput"],
+                                     rank=RANK)
+            # scheme_cost partitions the mode on the host: set-up time.
+            t0 = clock.now()
+            costs = {sc: scheme_cost(t, d, kappa, Scheme(sc), profile=default)
+                     for sc in (1, 2)}
+            mcosts = {sc: scheme_cost(t, d, kappa, Scheme(sc), profile=measured)
+                      for sc in (1, 2)}
+            row["cost_s"] = clock.now() - t0
+            row["schemes"] = {
+                "threshold": choose_scheme(t.shape[d], kappa).value,
+                "cost_default": 1 if costs[1] <= costs[2] else 2,
+                "cost_measured": 1 if mcosts[1] <= mcosts[2] else 2}
+            row["modeled_s"] = {"default": costs, "measured": mcosts}
+            calls, metas = {}, {}
+            for sc, p in plans.items():
+                pk = p.packed(d)
+                metas[sc] = (pk.num_row_blocks, pk.block_rows, pk.tile,
+                             p.mode_plan(d, RANK).rank_block)
+                idxp, valsp, lrowsp, rb_of, chunks, _ = p.device_packed(d)
+                in_f = [facs[w] for w in p.layouts[d].input_modes()]
+                calls[sc] = functools.partial(
+                    ks.mttkrp_slab, idxp, valsp, lrowsp, rb_of, in_f, chunks=chunks,
+                    num_row_blocks=pk.num_row_blocks, block_rows=pk.block_rows,
+                    tile=pk.tile, rank_block=metas[sc][3])
+                row[f"scheme{sc}"] = {"slabs": pk.num_slabs,
+                                      "padding_share": pk.pad_fraction}
+            # In turns, 1 2 2 1: a difference must hold in both rounds.
+            rounds = [(sc, cuda_ms(torch, calls[sc], TIMED_LAUNCHES))
+                      for sc in (1, 2, 2, 1)]
+            for sc in (1, 2):
+                runs = [ms for s, ms in rounds if s == sc]
+                row[f"scheme{sc}"].update(ms=sum(runs) / 2, ms_rounds=runs)
+            ms1, ms2 = row["scheme1"]["ms"], row["scheme2"]["ms"]
+            faster = 1 if ms1 <= ms2 else 2
+            row["faster"] = faster
+            row["same_order_both_rounds"] = (
+                (rounds[0][1] <= rounds[1][1]) == (rounds[3][1] <= rounds[2][1]))
+            row["scheme1_over_scheme2"] = ms1 / ms2
+            for rule in rules:
+                chosen = row["schemes"][rule]
+                ratios[rule].append(row[f"scheme{chosen}"]["ms"] / row[f"scheme{faster}"]["ms"])
+            row["picked_faster"] = {r: row["schemes"][r] == faster for r in rules}
+            if d == 0:
+                # The kernel against its plain version on one mode per scheme.
+                before = ks.LAUNCHES["mttkrp_slab"]
+                for sc, p in plans.items():
+                    in_f = [facs[w] for w in p.layouts[d].input_modes()]
+                    err, tol = kernel_vs_plain_err(torch, ks, p.device_packed(d),
+                                                   in_f, metas[sc], f"plan: {name}")
+                    check(err <= tol, f"plan: {name} mode {d} scheme {sc}: "
+                                      f"err {err} > tol {tol}")
+                    row[f"scheme{sc}"].update(max_abs_err=err, tol=tol)
+                compare_launches += ks.LAUNCHES["mttkrp_slab"] - before
+            modes.append(row)
+        tensors[name] = {"shape": list(t.shape), "nnz": t.nnz,
+                         "layouts_s": layouts_s, "pack_s": pack_s, "modes": modes}
+        del plans, facs
+        torch.cuda.empty_cache()
+    geomean = {r: math.exp(sum(math.log(x) for x in v) / len(v))
+               for r, v in ratios.items()}
+
+    # -- a .tns round trip of lane 0 of the uber bucket ----------------------
+    path = ROOT / "build" / "plan_lane0.tns"
+    path.parent.mkdir(exist_ok=True)
+    t0 = clock.now()
+    write_tns(str(path), lane0)
+    write_s = clock.now() - t0
+    t0 = clock.now()
+    back = read_tns(str(path))
+    read_s = clock.now() - t0
+    file_bytes = path.stat().st_size
+    path.unlink()
+    tns_equal = (np.array_equal(back.indices, lane0.indices)
+                 and back.indices.dtype == lane0.indices.dtype
+                 and back.values.tobytes() == lane0.values.tobytes())
+    check(tns_equal, "plan: the .tns round trip changed indices or values")
+    inferred = list(back.shape)
+    shape_equal = tuple(back.shape) == tuple(lane0.shape)
+    if not shape_equal:     # an empty last slice is not in the file
+        back = SparseTensor(back.indices, back.values, lane0.shape)
+    kw = dict(n_iters=10, check_every=5, seed=0, device="cuda")
+    first = cpd_als(lane0, RANK, **kw)
+    builds0, sweeps0 = LEDGER.stats(), sweep_trace_stats()
+    again = cpd_als(back, RANK, **kw)
+    builds1, sweeps1 = LEDGER.stats(), sweep_trace_stats()
+    cpd_equal = (first.fits == again.fits
+                 and all(np.array_equal(a, b) for a, b in zip(first.factors, again.factors)))
+    check(cpd_equal, "plan: cpd_als on the read tensor differs from the original")
+    new_builds = builds1["traces"] - builds0["traces"]
+    check(new_builds == 0 and sweeps1 == sweeps0,
+          f"plan: a repeated shape built {new_builds} functions ({sweeps0} -> {sweeps1})")
+
+    # -- calibration: calibrate_tensor, then the tile model's fit -------------
+    t0 = clock.now()
+    with trace.capture() as tr:
+        cal_rows = calibrate.calibrate_tensor(
+            "chicago", chicago, rank=RANK, backends=("slab",), reps=3,
+            imbalance_reps=2, device=dev)
+    calibrate_s = clock.now() - t0
+    ratio_row = cal_rows[0]
+    check(all(math.isfinite(m["measured_s"]) and m["measured_s"] > 0
+              for m in ratio_row["per_mode"]), "plan: calibrate_tensor timings")
+    span_names = sorted({r["name"] for r in tr.records() if r["kind"] == "span"})
+    t0 = clock.now()
+    tile_layouts = {"chicago": build_mode_layout(chicago, 0, 1),
+                    "uber": build_mode_layout(uber, 3, 1)}
+    timed = {name: calibrate.measure_pack_candidates(lay, RANK, dataset=name,
+                                                     reps=TIMED_LAUNCHES, device=dev)
+             for name, lay in tile_layouts.items()}
+    tiles_s = clock.now() - t0
+    fit = calibrate.fit_pack_cost([r for rows in timed.values() for r in rows])
+    # The same fit with the function's bytes alone (``slab_bound``'s count,
+    # no partial tiles between the passes), to show what the partials do.
+    bare_rows = {name: [{**r, "bytes": r["bytes"] - r["partial_bytes"]} for r in rows]
+                 for name, rows in timed.items()}
+    bare = calibrate.fit_pack_cost([r for rows in bare_rows.values() for r in rows])
+    smem = ks.shared_memory_per_block(dev)
+    tiles = {}
+    for name, rows in timed.items():
+        lay = tile_layouts[name]
+        for r in rows:
+            after = kops.estimate_pack_cost(lay, r["block_rows"], r["tile"], RANK,
+                                            smem_limit=smem, **fit)["cost"]
+            r.update(before_ratio=r["cost"] / r["measured_s"],
+                     after_ratio=after / r["measured_s"])
+        pick = kops.auto_tiles(lay, RANK, smem_limit=smem, **fit)
+        by_tiles = {(r["block_rows"], r["tile"]): r for r in rows}
+        bare_cost = {(r["block_rows"], r["tile"]): r["bytes"] / bare["bytes_per_s"]
+                     + r["chunks"] * r["num_rank_blocks"] * bare["chunk_s"]
+                     for r in bare_rows[name]}
+        bare_pick = min(bare_cost, key=bare_cost.get)
+        check(pick in by_tiles and (128, 256) in by_tiles,
+              f"plan: {name}: auto_tiles picked an untimed {pick}")
+        tiles[name] = {
+            "mode": lay.mode, "rows": lay.num_rows, "nnz": lay.nnz,
+            "candidates": [{k: r[k] for k in ("block_rows", "tile", "slabs",
+                                               "pad_fraction", "chunks", "bytes",
+                                               "rank_block", "measured_s",
+                                               "before_ratio", "after_ratio")}
+                           for r in rows],
+            "before_ratio_range": [min(r["before_ratio"] for r in rows),
+                                   max(r["before_ratio"] for r in rows)],
+            "after_ratio_range": [min(r["after_ratio"] for r in rows),
+                                  max(r["after_ratio"] for r in rows)],
+            "auto_tiles": list(pick), "auto_tiles_ms": by_tiles[pick]["measured_s"] * 1e3,
+            "bare_pick": list(bare_pick),
+            "bare_pick_ms": by_tiles[bare_pick]["measured_s"] * 1e3,
+            "bare_after_ratio_range": [
+                min(bare_cost[k] / by_tiles[k]["measured_s"] for k in bare_cost),
+                max(bare_cost[k] / by_tiles[k]["measured_s"] for k in bare_cost)],
+            "default_ms": by_tiles[(128, 256)]["measured_s"] * 1e3,
+            "fastest": min(by_tiles, key=lambda k: by_tiles[k]["measured_s"]),
+            "fastest_ms": min(r["measured_s"] for r in rows) * 1e3}
+    launches = ks.LAUNCHES["mttkrp_slab"] - compare_launches
+    return {"phase": "plan", "kappa": kappa, "paper_kappa": 82, "rank": RANK,
+            "uber_generate_s": gen_s,
+            "default_profile": dataclasses.asdict(default),
+            "measured_profile": {**bw, "rank": RANK,
+                                 "atomic_tput": "per mode, in tensors.*.modes"},
+            "tensors": tensors, "geomean_chosen_over_faster": geomean,
+            "memory": memory,
+            "tns": {"nnz": lane0.nnz, "file_bytes": file_bytes, "write_s": write_s,
+                    "read_s": read_s, "bitwise": tns_equal,
+                    "inferred_shape": inferred,
+                    "shape_equal": shape_equal, "cpd_bitwise": cpd_equal},
+            "ledger": {"new_builds_on_repeat": new_builds, "sweep_trace_stats": sweeps1,
+                       "kinds": LEDGER.kinds()},
+            "calibrate": {"rows": cal_rows, "spans": span_names, "seconds": calibrate_s},
+            "tile_model": {"fit": fit, "bare_fit": bare, "defaults": {
+                "bytes_per_s": kops.DATASHEET_BYTES_PER_S, "chunk_s": 0.0},
+                "tensors": tiles, "seconds": tiles_s},
+            "launches": launches, "compare_launches": compare_launches,
+            "phase_s": clock.now() - t_phase}
+
+
 def main() -> int:
     import torch
 
@@ -664,24 +959,11 @@ def main() -> int:
                                 device=dev).to(dtype) for I in t.shape]
 
     def run_pair(d, facs, rank_block):
-        idxp, valsp, lrowsp, rb_of, chunks, _ = plan.device_packed(d)
         p = plan.packed(d)
-        in_f = [facs[w] for w in plan.layouts[d].input_modes()]
-        kw = dict(num_row_blocks=p.num_row_blocks, block_rows=p.block_rows,
-                  tile=p.tile)
-        k = ks.mttkrp_slab(idxp, valsp, lrowsp, rb_of, in_f, chunks=chunks,
-                           rank_block=rank_block, **kw)
-        plain = ks.mttkrp_slab_plain(idxp, valsp, lrowsp, rb_of, in_f, **kw)
-        # Tolerance: float32 sums of up to ~2.2e5 terms taken in two orders
-        # differ by a small multiple of eps times the absolute sum (about
-        # 1.5e-7 of it measured on the H100); hold them to 1e-5 of it.
-        mag = ks.mttkrp_slab_plain(idxp, valsp.abs(), lrowsp, rb_of,
-                                   [f.abs() for f in in_f], **kw)
-        tol = 1e-5 * float(mag.max())
-        torch.cuda.synchronize()
-        err = float((k - plain).abs().max())
-        check(bool(torch.isfinite(k).all()), f"mode {d}: non-finite kernel output")
-        return err, tol
+        return kernel_vs_plain_err(
+            torch, ks, plan.device_packed(d),
+            [facs[w] for w in plan.layouts[d].input_modes()],
+            (p.num_row_blocks, p.block_rows, p.tile, rank_block), f"mode {d}")
 
     f16 = factors_for(RANK)
     f33 = factors_for(33)
@@ -1119,6 +1401,10 @@ def main() -> int:
           "batched_profile": {"sweeps": 2, "lanes": LANES, "method": "cp",
                               **batched_profile}})
 
+    # -- plan: the paper's scheme choice and the planning tools ----------------
+    plan_out = plan_phase(torch, np, clock, ks, dev, t, lanes[0])
+    emit(plan_out)
+
     def kernel_entry(name, modes, launches, err, phases):
         return {
             "name": name, "route": "cuda",
@@ -1139,7 +1425,8 @@ def main() -> int:
         kernel_entry("mttkrp_slab", per_mode, launches,
                      max(m["max_abs_err"] for m in modes),
                      {"main_path": launches, "methods": nn_launches["mttkrp_slab"],
-                      "stream": new_phases["stream"]["launches"]}),
+                      "stream": new_phases["stream"]["launches"],
+                      "plan": plan_out["launches"]}),
         kernel_entry("mttkrp_slab_valued", valued_modes,
                      mk_launches["mttkrp_slab_valued"],
                      max(m["max_abs_err"] for m in valued_modes),

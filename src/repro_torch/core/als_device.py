@@ -32,7 +32,11 @@ another summation order, for another B.)
 Window functions are cached per (backend, nmodes, rank, shapes, slab
 tiling, solver, block length, method), as the reference caches its
 compiled sweep blocks; ``sweep_cache_stats()`` exposes the hits and
-misses.
+misses.  Each build registers in the build ledger (``obs.ledger.LEDGER``,
+kind ``sweep_block``; the MTTKRP-only replay as ``mttkrp_block``), and
+``sweep_trace_stats()`` is the ledger's view of the sweep blocks: the
+port's counterpart of the reference's trace counts, where a build takes
+the place of an XLA trace.
 """
 from __future__ import annotations
 
@@ -50,6 +54,7 @@ from ..kernels.mttkrp_slab import (mttkrp_slab_batched, mttkrp_slab_valued,
                                    scatter_slab_values)
 from ..obs import clock as obs_clock
 from ..obs import trace as obs_trace
+from ..obs.ledger import LEDGER
 from .coo import SparseTensor
 from .cpd import CPDResult
 from .mttkrp import MTTKRPPlan, make_plan, slab_backend, unrelabel_rows
@@ -462,7 +467,32 @@ def _build_sweep_block(backend: str, nmodes: int, rank: int,
                 ok = ok_s if ok is None else ok & ok_s
         return state, torch.stack(fits), ok
 
-    return run_block
+    return LEDGER.register(
+        "sweep_block",
+        (backend, nmodes, rank, shapes, slab_meta, solver, "block", block,
+         "method", method),
+        run_block)
+
+
+@functools.lru_cache(maxsize=None)
+def _build_mttkrp_block(backend: str, nmodes: int, rank: int,
+                        shapes: tuple[int, ...], slab_meta: tuple | None,
+                        block: int):
+    """``run(factors, mode_data_all)``: ``block`` sweeps of the N mode
+    MTTKRPs with no solve, normalization or fit, queued with no host
+    read.  Timing it against the full sweep separates ``mttkrp_seconds``
+    (the kernel's cost does not depend on factor values, so replaying
+    with the final factors is faithful)."""
+    one_mttkrp = _build_one_mttkrp(backend, nmodes, shapes, slab_meta)
+
+    def run(factors, mode_data_all):
+        for _ in range(block):
+            for d in range(nmodes):
+                one_mttkrp(d, mode_data_all[d], factors)
+
+    return LEDGER.register(
+        "mttkrp_block",
+        (backend, nmodes, rank, shapes, slab_meta, "block", block), run)
 
 
 def sweep_cache_stats():
@@ -470,6 +500,17 @@ def sweep_cache_stats():
     info = _build_sweep_block.cache_info()
     return {"hits": info.hits, "misses": info.misses,
             "currsize": info.currsize}
+
+
+def sweep_trace_stats():
+    """``{"blocks", "traces"}`` of the sweep blocks, a view over
+    ``obs.ledger.LEDGER`` (kind ``sweep_block``): blocks registered, and
+    builds since the ledger's last ``reset()``.  A repeated same-shape
+    decomposition, or a streaming increment inside its bucket, leaves
+    ``traces`` unchanged; a novel shape or window length adds one per
+    new block.  Agrees with ``sweep_cache_stats()["misses"]`` deltas."""
+    s = LEDGER.stats("sweep_block")
+    return {"blocks": s["blocks"], "traces": s["traces"]}
 
 
 def _collect_mode_data(plan: MTTKRPPlan, backend: str, rank: int):
@@ -527,6 +568,13 @@ def init_state_host(tensor_shape, rank: int, seed: int):
     grams = tuple(F.T @ F for F in factors)
     weights = np.ones((rank,), np.float32)
     return (factors, grams, weights)
+
+
+def init_state(tensor_shape, rank: int, seed: int, device="cuda"):
+    """Device-resident seeded init for the sequential fused engine: the
+    host init (``init_state_host``) uploaded to ``device``."""
+    return state_from_reference(*init_state_host(tensor_shape, rank, seed),
+                                device=resolve_device(device))
 
 
 def state_from_factors(factors, weights=None):
@@ -677,8 +725,8 @@ def cpd_als_fused(
     mttkrp_seconds = 0.0
     if profile_mttkrp and windows_run and not structural:
         mttkrp_seconds = _profile_mttkrp_replay(
-            _build_one_mttkrp(backend, N, shapes, slab_meta), N, state[0],
-            mode_data_all, sum(windows_run), dev)
+            backend, N, rank, shapes, slab_meta, state[0], mode_data_all,
+            windows_run, dev)
 
     return CPDResult(
         factors=[F.cpu().numpy() for F in state[0]],
@@ -693,21 +741,26 @@ def cpd_als_fused(
     )
 
 
-def _profile_mttkrp_replay(one_mttkrp, nmodes, factors, mode_data_all,
-                           sweeps: int, device) -> float:
-    """Wall time of ``sweeps`` MTTKRP-only sweeps (one warm-up sweep first;
-    the kernel's cost does not depend on factor values, so replaying with
-    the final factors is faithful)."""
+def _profile_mttkrp_replay(backend, nmodes, rank, shapes, slab_meta, factors,
+                           mode_data_all, windows_run, device) -> float:
+    """Wall time of the MTTKRP-only replay of the run's check windows, one
+    ``_build_mttkrp_block`` per window length (a warm-up call of each
+    first, outside the timing)."""
     def sync():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
-    for d in range(nmodes):
-        one_mttkrp(d, mode_data_all[d], factors)
-    sync()
-    t0 = obs_clock.now()
-    for _ in range(sweeps):
-        for d in range(nmodes):
-            one_mttkrp(d, mode_data_all[d], factors)
-    sync()
-    return obs_clock.now() - t0
+    total = 0.0
+    for k in sorted(set(windows_run)):
+        fn = _build_mttkrp_block(backend, nmodes, rank, shapes, slab_meta, k)
+        fn(factors, mode_data_all)                  # warm-up
+        sync()
+        reps = windows_run.count(k)
+        with obs_trace.span("mttkrp.replay", cat="als", backend=backend,
+                            block=k, reps=reps):
+            t0 = obs_clock.now()
+            for _ in range(reps):
+                fn(factors, mode_data_all)
+            sync()
+            total += obs_clock.now() - t0
+    return total

@@ -10,7 +10,9 @@ ordered for mode-d-as-output execution:
 Output rows are *relabeled* so each scheme-1 partition owns a contiguous
 row range.  Kernels compute in relabeled space and the MTTKRP front door
 scatters rows back through ``row_perm``.  The arrays are bitwise those of
-``repro.core.layout``.
+``repro.core.layout``, under either scheme policy ('threshold', the
+paper's rule, or 'cost').  ``format_memory_report`` is the fig-5 memory
+accounting of the copies.
 """
 from __future__ import annotations
 
@@ -19,7 +21,8 @@ import dataclasses
 import numpy as np
 
 from .coo import SparseTensor
-from .load_balance import Partitioning, Scheme, partition_mode
+from .load_balance import (Partitioning, Scheme, choose_scheme_cost_based,
+                           partition_mode)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,6 +74,12 @@ class ModeLayout:
     def input_modes(self) -> list[int]:
         return [w for w in range(self.nmodes) if w != self.mode]
 
+    def nbytes(self) -> int:
+        """Host bytes of the copy: indices, rows and values (the paper's
+        §III-C per-nnz model, rounded up to the int32/float32 arrays
+        stored)."""
+        return self.indices.nbytes + self.values.nbytes + self.rows.nbytes
+
 
 def build_mode_layout(
     tensor: SparseTensor,
@@ -79,9 +88,17 @@ def build_mode_layout(
     *,
     scheme: Scheme | None = None,
     assignment: str = "greedy",
+    policy: str = "threshold",
 ) -> ModeLayout:
-    """Construct the mode-``mode`` copy partitioned across ``kappa`` units
-    (scheme None: the paper's adaptive threshold rule)."""
+    """Construct the mode-``mode`` copy partitioned across ``kappa`` units.
+
+    policy (when scheme is None): 'threshold' = the paper's adaptive rule;
+    'cost' = the cost-model argmin (``load_balance.choose_scheme_cost_based``
+    under its default profile).
+    """
+    if scheme is None and policy == "cost":
+        scheme = choose_scheme_cost_based(tensor, mode, kappa,
+                                          assignment=assignment)
     part: Partitioning = partition_mode(
         tensor, mode, kappa, scheme=scheme, assignment=assignment
     )
@@ -133,9 +150,30 @@ def build_all_mode_layouts(
     *,
     scheme: Scheme | None = None,
     assignment: str = "greedy",
+    policy: str = "threshold",
 ) -> list[ModeLayout]:
     """The paper's full mode-specific format: one execution-ready copy per mode."""
     return [
-        build_mode_layout(tensor, d, kappa, scheme=scheme, assignment=assignment)
+        build_mode_layout(tensor, d, kappa, scheme=scheme,
+                          assignment=assignment, policy=policy)
         for d in range(tensor.nmodes)
     ]
+
+
+def format_memory_report(tensor: SparseTensor, layouts: list[ModeLayout]) -> dict:
+    """Fig-5-style memory accounting: N copies + factor matrices at the
+    reference's fixed R = 32 (float32), for parity with it.  The copies
+    count the int32 indices and rows and the values of every layout."""
+    R = 32
+    copies = sum(l.nbytes() for l in layouts)
+    factors = sum(int(I) * R * 4 for I in tensor.shape)
+    # Paper's analytic model: |x|_bits = sum_h log2(I_h) + 32 bits per nnz.
+    analytic_bits_per_nnz = sum(np.log2(max(2, I)) for I in tensor.shape) + 32
+    analytic = int(tensor.nmodes * tensor.nnz * analytic_bits_per_nnz / 8)
+    return {
+        "nnz": tensor.nnz,
+        "copies_bytes": int(copies),
+        "factors_bytes": int(factors),
+        "total_bytes": int(copies + factors),
+        "analytic_copies_bytes": analytic,
+    }

@@ -147,13 +147,19 @@ def make_plan(
     *,
     scheme: Scheme | None = None,
     assignment: str = "greedy",
+    policy: str = "threshold",
     block_rows: int = kops.DEFAULT_BLOCK_ROWS,
     tile: int = kops.DEFAULT_TILE,
     partition: plan_mod.PartitionPlan | None = None,
     device="cuda",
 ) -> MTTKRPPlan:
+    """All mode copies of ``tensor`` over ``kappa`` partitions, with each
+    mode's scheme forced (``scheme``) or chosen by ``policy``
+    ('threshold', the paper's rule, or 'cost', ``scheme_cost``'s argmin).
+    The packings and device arrays are cached on the returned plan only,
+    so plans whose modes chose different schemes never share them."""
     layouts = build_all_mode_layouts(tensor, kappa, scheme=scheme,
-                                     assignment=assignment)
+                                     assignment=assignment, policy=policy)
     return MTTKRPPlan(
         tensor=tensor,
         kappa=kappa,

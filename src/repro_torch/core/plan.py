@@ -15,6 +15,13 @@ factors, fits the shared memory one block may use on the plan's device
 (``kernels.mttkrp_slab.max_rank_block``); the JAX package's TPU cost
 model (VMEM and MXU units) is not carried over.
 
+A deliberate divergence from the reference: its plans price every
+candidate tiling with its cost model (``auto_tiles``).  The port has a
+Hopper-priced model of the slab kernel (``kernels.ops.auto_tiles``,
+calibrated by ``obs.calibrate``), but ``_mode_plan`` does not consult
+it: wiring it in would change every packing the port makes, which is a
+speed change to be judged on a benchmark, not part of a port.
+
 Serving feedback.  ``plan_bucket(density=)`` takes per-mode row-density
 profiles observed by ``serve.metrics`` (``density_profile``) and prices
 the segment backend's partitioning against them
@@ -250,7 +257,8 @@ def _mode_plan(num_rows: int, mode: int, rank: int, nnz_cap: int, *,
     block_rows = kops.DEFAULT_BLOCK_ROWS if block_rows is None else int(block_rows)
     tile = kops.DEFAULT_TILE if tile is None else int(tile)
     if rank_block is None:
-        rank_block = max_rank_block(block_rows, smem_limit, num_inputs)
+        rank_block = max_rank_block(block_rows, smem_limit, num_inputs,
+                                    widest=rank)
         if rank_block < 1:
             raise ValueError(
                 f"block_rows {block_rows} leaves no room for one rank column "

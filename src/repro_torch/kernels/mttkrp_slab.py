@@ -168,11 +168,11 @@ def _shared_memory_per_block(dev: torch.device) -> int:
 
 
 def max_rank_block(block_rows: int, smem_limit: int,
-                   num_inputs: int = MAX_INPUTS) -> int:
-    """Widest rank block whose pass-one block, for ``num_inputs`` input
-    factors, fits ``smem_limit`` bytes of shared memory and the thread
-    limit (0 if not even one column fits)."""
-    for rb in range(MAX_THREADS, 0, -1):
+                   num_inputs: int = MAX_INPUTS, widest: int = MAX_THREADS) -> int:
+    """Widest rank block of at most ``widest`` columns whose pass-one
+    block, for ``num_inputs`` input factors, fits ``smem_limit`` bytes of
+    shared memory and the thread limit (0 if not even one column fits)."""
+    for rb in range(min(int(widest), MAX_THREADS), 0, -1):
         if smem_bytes(block_rows, rb, num_inputs=num_inputs) <= smem_limit:
             return rb
     return 0

@@ -4,6 +4,12 @@
 arrays the kernel consumes.  Packing is one-time host preprocessing per
 mode copy (amortized over all ALS iterations).  The packed arrays are
 bitwise those of ``repro.kernels.ops`` at the same ``(block_rows, tile)``.
+
+The tile model (``tile_candidates``, ``auto_rank_block``,
+``estimate_pack_cost``, ``auto_tiles``) prices a ``(block_rows, tile)``
+choice for the Hopper slab kernel, not for the reference's TPU: shared
+memory decides feasibility and the cost is in seconds.  ``core.plan``
+does not consume it (see there); ``obs.calibrate`` fits its constants.
 """
 from __future__ import annotations
 
@@ -13,11 +19,16 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from .mttkrp_slab import (max_rank_block, mttkrp_slab, mttkrp_slab_plain,
-                          shared_memory_per_block, slab_chunks)
+from .mttkrp_slab import (CHUNK_SLABS, DEFAULT_SMEM_BYTES, GROUP_CHUNKS,
+                          max_rank_block, mttkrp_slab, mttkrp_slab_plain,
+                          shared_memory_per_block, slab_chunks, smem_bytes)
 
 DEFAULT_TILE = 256
 DEFAULT_BLOCK_ROWS = 128
+# The tile model's default memory rate: the H100 SXM's HBM3 rate from its
+# datasheet, not a measurement.  ``obs.calibrate.fit_pack_cost`` fits the
+# rate and the per-chunk time on the card in use.
+DATASHEET_BYTES_PER_S = 3.35e12
 
 
 @dataclasses.dataclass(frozen=True)
@@ -230,7 +241,8 @@ def mttkrp_packed(
     device = factors[0].device
     if rank_block is None:
         rank_block = max_rank_block(
-            packed.block_rows, shared_memory_per_block(device), len(factors))
+            packed.block_rows, shared_memory_per_block(device), len(factors),
+            widest=int(factors[0].shape[-1]))
     idx, vals, lrows, rb_of = _packed_tensors(packed, device)
     out = mttkrp_slab(
         idx, vals, lrows, rb_of, list(factors),
@@ -254,3 +266,123 @@ def mttkrp_packed_ref(
         num_row_blocks=packed.num_row_blocks, block_rows=packed.block_rows,
         tile=packed.tile)
     return out[: packed.num_rows]
+
+
+# -- the tile model: (block_rows, tile) priced for the slab kernel on Hopper --
+#
+# The reference prices a TPU here (VMEM budget, MXU width, grid-step
+# overhead); none of that carries over.  The slab kernel's limits are its
+# shared memory per pass-one block and its thread count
+# (``mttkrp_slab.max_rank_block``), and its time is the bytes it moves
+# (inputs, output and the partial tiles between its passes) plus a fixed
+# cost per chunk of ``CHUNK_SLABS`` slabs.  ``estimate_pack_cost``
+# and ``auto_tiles`` read only ``num_rows`` / ``nnz`` / ``nmodes`` /
+# ``shape`` / ``row_ptr`` of a layout, so no packing is built.
+
+
+def tile_candidates():
+    """The ``(block_rows, tile)`` pairs the model prices: the reference's
+    grid.  The wrapper and ``csrc/mttkrp_slab.cu`` take any ``tile >= 1``
+    (a multiple of 4 streams slots in 16-byte granules, as all of these
+    do) and any ``block_rows`` whose pass-one block fits shared memory
+    with one rank column; ``estimate_pack_cost`` judges that per mode."""
+    return [(br, t) for br in (8, 32, 128, 256) for t in (64, 128, 256, 512)]
+
+
+def auto_rank_block(rank: int, block_rows: int, tile: int, factor_rows: int,
+                    num_inputs: int, *,
+                    smem_limit: int = DEFAULT_SMEM_BYTES) -> int:
+    """Widest rank block of at most ``rank`` columns whose pass-one block
+    fits ``smem_limit`` bytes of shared memory and the thread limit at
+    ``block_rows``; 0 when not one column fits.  (Not simply ``min(rank,
+    max_rank_block)``: shared memory is not monotone in the rank block,
+    since four-column blocks have more walkers, so a narrower block can
+    overflow where a wider one fits.)  ``tile`` and ``factor_rows`` do
+    not enter: the slot ring's stages are sized per walker whatever the
+    tile, and factors are staged only where the rest leaves room
+    (``launch_config``)."""
+    return max_rank_block(int(block_rows), int(smem_limit), int(num_inputs),
+                          widest=int(rank))
+
+
+def estimate_pack_cost(layout, block_rows: int, tile: int, rank: int,
+                       factor_rows: int | None = None, *,
+                       smem_limit: int = DEFAULT_SMEM_BYTES,
+                       bytes_per_s: float = DATASHEET_BYTES_PER_S,
+                       chunk_s: float = 0.0) -> dict:
+    """Closed-form slab-kernel time for a ``(block_rows, tile)`` choice,
+    without packing.
+
+    grid, pad_fraction -- slabs (every row block at least one, as
+                 ``pack_slabs`` packs) and their padding share, counted
+                 from ``row_ptr`` as the reference counts them;
+    chunks, groups -- pass one's chunks (``CHUNK_SLABS`` slabs of one row
+                 block) and pass two's groups (``GROUP_CHUNKS`` chunks);
+    bytes      -- the function's inputs and output counted as
+                 ``chip_smoke.py::slab_bound`` counts them (the W index
+                 streams, local rows and values per slot, the four chunk
+                 tables, the factors' columns, the output), with the slot
+                 streams read again for every rank block, plus
+                 ``partial_bytes``: the ``(block_rows, R)`` partial tiles
+                 pass one writes per chunk and pass two reads back, and
+                 the group sums between pass two's launches.  The bound
+                 leaves the partials out; the kernel pays them, and they
+                 are what makes wide row blocks with many chunks slow;
+    cost       -- ``bytes / bytes_per_s + chunks * rank blocks * chunk_s``
+                 seconds, or inf when not one rank column fits
+                 ``smem_limit`` (``smem_ok`` False).
+    """
+    nb = max(1, -(-layout.num_rows // block_rows))
+    row_ptr = layout.row_ptr
+    starts = row_ptr[np.minimum(np.arange(nb) * block_rows, layout.num_rows)]
+    ends = row_ptr[np.minimum((np.arange(nb) + 1) * block_rows,
+                              layout.num_rows)]
+    slabs = np.maximum(1, -(-(ends - starts) // tile))
+    G = int(slabs.sum())
+    slots = G * tile
+    pad = 1.0 - layout.nnz / max(slots, 1)
+    chunks_rb = -(-slabs // CHUNK_SLABS)
+    NC = int(chunks_rb.sum())
+    NG = int((-(-chunks_rb // GROUP_CHUNKS)).sum())
+    W = layout.nmodes - 1
+    if factor_rows is None:
+        factor_rows = sum(int(layout.shape[w]) for w in range(layout.nmodes)
+                          if w != layout.mode)
+    rank_block = auto_rank_block(rank, block_rows, tile, factor_rows, W,
+                                 smem_limit=smem_limit)
+    num_rank_blocks = -(-int(rank) // rank_block) if rank_block else 0
+    table_ints = (NC + 1) + (NG + 1) + 2 * (nb + 1)
+    r_pad = max(num_rank_blocks, 1) * max(rank_block, 1)
+    partial_bytes = 2 * (NC + NG) * block_rows * r_pad * 4
+    nbytes = (max(num_rank_blocks, 1) * slots * (W + 2) * 4 + table_ints * 4
+              + int(factor_rows) * int(rank) * 4 + nb * block_rows * int(rank) * 4
+              + partial_bytes)
+    cost = nbytes / bytes_per_s + NC * num_rank_blocks * chunk_s
+    return {"block_rows": block_rows, "tile": tile, "grid": G,
+            "pad_fraction": pad, "chunks": NC, "groups": NG,
+            "bytes": int(nbytes), "partial_bytes": int(partial_bytes),
+            "smem": int(smem_bytes(block_rows, rank_block, num_inputs=W))
+            if rank_block else None,
+            "rank_block": int(rank_block),
+            "num_rank_blocks": int(num_rank_blocks),
+            "smem_ok": bool(rank_block >= 1),
+            "cost": float(cost) if num_rank_blocks else float("inf")}
+
+
+def auto_tiles(layout, rank: int = 32, factor_rows: int | None = None, *,
+               smem_limit: int = DEFAULT_SMEM_BYTES,
+               bytes_per_s: float = DATASHEET_BYTES_PER_S,
+               chunk_s: float = 0.0):
+    """The feasible ``(block_rows, tile)`` of least modeled time (the
+    first in ``tile_candidates`` order on a tie), or the default tiling
+    when none is feasible."""
+    best = None
+    for br, t in tile_candidates():
+        c = estimate_pack_cost(layout, br, t, rank, factor_rows,
+                               smem_limit=smem_limit,
+                               bytes_per_s=bytes_per_s, chunk_s=chunk_s)
+        if c["smem_ok"] and (best is None or c["cost"] < best["cost"]):
+            best = c
+    if best is None:
+        return DEFAULT_BLOCK_ROWS, DEFAULT_TILE
+    return best["block_rows"], best["tile"]

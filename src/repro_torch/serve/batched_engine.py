@@ -68,6 +68,7 @@ from ..kernels.mttkrp_slab import shared_memory_per_block, stack_chunks
 from ..kernels.ops import pack_layout
 from ..obs import clock as obs_clock
 from ..obs import trace as obs_trace
+from ..obs.ledger import LEDGER
 from .buckets import pad_tensor, pad_weights, repeat_pad
 
 _BATCH_BACKENDS = ("slab", "segment", "coo")
@@ -139,9 +140,14 @@ def _build_batched_block(backend: str, nmodes: int, rank: int,
                          method: str):
     """Cached window function of one (bucket, B, window, method) class;
     ``nnz_cap`` and ``batch`` are in the key so the cache counts one entry
-    per class, as the reference's executable cache does."""
-    return _make_window_runner(backend, nmodes, rank, shapes, solver, block,
-                               slab_meta, method)
+    per class, as the reference's executable cache does.  Each build
+    registers in the build ledger (kind ``batched_block``)."""
+    return LEDGER.register(
+        "batched_block",
+        (backend, nmodes, rank, shapes, "cap", nnz_cap, "B", batch,
+         "block", block, slab_meta, solver, "method", method),
+        _make_window_runner(backend, nmodes, rank, shapes, solver, block,
+                            slab_meta, method))
 
 
 def batched_cache_stats():

@@ -33,6 +33,12 @@ on the engine's compute stream.  ``ServiceMetrics.record_dispatch``
 accumulates the measured overlap; ``join()`` (or ``Future.result()``)
 waits out in-flight dispatches.  Results are bitwise the synchronous
 service's: the same kernels run on the same inputs in the same order.
+
+Engine errors: any ``BaseException`` from either half resolves every
+future of the batch (and of the batches popped with it) with the error,
+as the reference does.  One that is not an ``Exception`` (a
+``KeyboardInterrupt``) then goes on to the flushing caller, or, under
+double buffering, to ``join()``.
 """
 from __future__ import annotations
 
@@ -293,9 +299,19 @@ class BatchScheduler:
         return work
 
     def _run_batches(self, work: list) -> None:
-        for bucket, batch, trigger in work:
-            if batch:
+        for i, (bucket, batch, trigger) in enumerate(work):
+            if not batch:
+                continue
+            try:
                 self._run_one(bucket, batch, trigger)
+            except BaseException as exc:
+                # _run_one resolved its own batch before re-raising; the
+                # batches popped after it get the same error, so no
+                # popped future is left pending.
+                for _, rest, _ in work[i + 1:]:
+                    for p in rest:
+                        p.future._resolve(None, exc)
+                raise
 
     def _run_one(self, bucket: Bucket, batch: list, trigger: str) -> None:
         # Cache counters are global; under concurrent flushes another
@@ -340,15 +356,19 @@ class BatchScheduler:
                     density=density,
                     weights=[p.weights for p in exec_batch],
                 )
-            except Exception as exc:
+            except BaseException as exc:
                 # Executor semantics: the failure belongs to the batch's
                 # own futures (raised from their result()), never to
                 # whichever caller's submit/poll happened to trigger the
                 # flush — a submitter must still receive its future for
-                # an unrelated bucket's engine error.
+                # an unrelated bucket's engine error.  Any BaseException
+                # resolves them, as in the reference; one that is not an
+                # Exception (Ctrl-C) then goes on to the caller.
                 sp.set(error=type(exc).__name__)
                 for p in batch:
                     p.future._resolve(None, exc)
+                if not isinstance(exc, Exception):
+                    raise
                 return
             t_prep = obs_clock.now()
             assembly_s = t_prep - t0
@@ -407,11 +427,13 @@ class BatchScheduler:
                         results = self.engine.execute_prepared(prep)
                 else:
                     results = self.engine.execute_prepared(prep)
-            except Exception as exc:
+            except BaseException as exc:
                 if sp is not None:
                     sp.set(error=type(exc).__name__)
                 for p in batch:
                     p.future._resolve(None, exc)
+                if not isinstance(exc, Exception):
+                    raise
                 return
         finally:
             interval[1] = obs_clock.now()

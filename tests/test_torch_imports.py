@@ -30,7 +30,9 @@ def test_import_leaves_jax_out():
     code = ("import sys, repro_torch, repro_torch.core.als_device, "
             "repro_torch.convert, repro_torch.kernels.build, "
             "repro_torch.methods, repro_torch.serve, repro_torch.obs, "
-            "repro_torch.checkpoint, repro_torch.runtime; "
+            "repro_torch.checkpoint, repro_torch.runtime, repro_torch.data, "
+            "repro_torch.obs.calibrate, repro_torch.obs.history, "
+            "repro_torch.obs.regress, repro_torch.obs.report; "
             f"bad = sorted(m for m in sys.modules "
             f"if m.split('.')[0] in {FORBIDDEN!r}); "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -363,23 +363,60 @@ def test_cross_bucket_aging_prevents_starvation():
     assert sched.metrics.snapshot()["flush_triggers"]["aging"] >= 1
 
 
-@pytest.mark.parametrize("half", ["prepare_batch", "execute_prepared"])
-@pytest.mark.parametrize("double_buffer", [False, True])
-def test_engine_error_delivered_via_futures(half, double_buffer):
-    sched = BatchScheduler(BatchedEngine(3, kappa=2, check_every=2, device="cpu"),
-                           max_batch=8, max_wait_s=1e9, metrics=ServiceMetrics(),
-                           clock=FakeClock(), double_buffer=double_buffer)
-    fut = sched.submit(_requests(random_sparse, 1)[0], n_iters=2, tol=-1.0)
+class _Interrupt(BaseException):
+    """Not an ``Exception``: what a Ctrl-C looks like to the scheduler."""
+
+
+def _failing_flush(sched, half, error):
+    """Two requests of one bucket and one of another, an engine whose
+    ``half`` raises ``error``, then a forced flush and ``join()``: the
+    futures and whatever escaped to the caller."""
+    make = (random_sparse if isinstance(sched, BatchScheduler)
+            else r_random_sparse)
+    futs = [sched.submit(t, n_iters=2, tol=-1.0)
+            for t in _requests(make, 2) + _requests(make, 1, nnz=80, shape=SHAPE_B)]
 
     def boom(*a, **k):
-        raise RuntimeError("engine down")
+        raise error("engine down")
 
     setattr(sched.engine, half, boom)
-    assert sched.flush() == 1              # the flush itself does not raise
-    sched.join()
-    assert fut.done()
-    with pytest.raises(RuntimeError, match="engine down"):
-        fut.result()
+    try:
+        sched.flush()
+        sched.join()
+    except BaseException as exc:
+        return futs, exc
+    return futs, None
+
+
+@pytest.mark.parametrize("error", [RuntimeError, _Interrupt],
+                         ids=["exception", "base_exception"])
+@pytest.mark.parametrize("half", ["prepare_batch", "execute_prepared"])
+@pytest.mark.parametrize("double_buffer", [False, True])
+def test_engine_error_delivered_via_futures(half, double_buffer, error):
+    """Every future of every popped batch is resolved with the engine's
+    error, whatever its class, as in the reference; the port then hands
+    an error that is not an ``Exception`` on to the caller (from the
+    flush, or from ``join()`` when the failing half ran on the dispatch
+    worker), where the reference drops it."""
+    kw = dict(max_batch=8, max_wait_s=1e9, clock=FakeClock(),
+              double_buffer=double_buffer)
+    port = BatchScheduler(BatchedEngine(3, kappa=2, check_every=2, device="cpu"),
+                          metrics=ServiceMetrics(), **kw)
+    ref = RBatchScheduler(RBatchedEngine(3, kappa=2, check_every=2),
+                          metrics=RServiceMetrics(), **kw)
+    futs, escaped = _failing_flush(port, half, error)
+    rfuts, rescaped = _failing_flush(ref, half, error)
+    assert rescaped is None
+    if issubclass(error, Exception):
+        assert escaped is None
+    else:
+        assert isinstance(escaped, error)
+    assert [f.done() for f in futs] == [f.done() for f in rfuts] == [True] * 3
+    assert port.pending() == ref.pending() == 0
+    for f, rf in zip(futs, rfuts):
+        for fut in (f, rf):
+            with pytest.raises(error, match="engine down"):
+                fut.result()
 
 
 def test_submit_validates_weights_eagerly():
