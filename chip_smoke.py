@@ -78,6 +78,12 @@ MASKED_START = 600_000
 MASKED_DECAY, MASKED_FLOOR = 0.8, 0.1
 SERVICE_REQUESTS = 16
 SERVICE_CAP = 962_965         # the 16 requests' bucket under growth 1.25
+# The dist and pod phases: 10 sweeps in windows of 5; the pod decomposes
+# the first 6 requests of the uber bucket on a batch quantum of 4 (two
+# padding lanes); the kappa = 2 ranks are spawned with this time limit.
+DIST_SWEEPS, DIST_CHECK = 10, 5
+POD_REQUESTS, POD_QUANTUM = 6, 4
+RANK_TIMEOUT_S = 600
 
 
 def emit(obj) -> None:
@@ -637,6 +643,19 @@ def kernel_vs_plain_err(torch, ks, data, in_f, meta, what) -> tuple[float, float
     return float((k - plain).abs().max()), 1e-5 * float(mag.max())
 
 
+def abs_mttkrp_max(ks, plan, F, d) -> float:
+    """Largest entry of mode ``d``'s MTTKRP of ``|vals|`` and ``|F|`` (the
+    slab kernel's plain version on the plan's packing): the scale that
+    every 1e-5 gate of this script is taken of."""
+    idxp, valsp, lrowsp, rb_of, _, _ = plan.device_packed(d)
+    p = plan.packed(d)
+    mag = ks.mttkrp_slab_plain(idxp, valsp.abs(), lrowsp, rb_of,
+                               [F[v].abs() for v in plan.layouts[d].input_modes()],
+                               num_row_blocks=p.num_row_blocks, block_rows=p.block_rows,
+                               tile=p.tile)
+    return float(mag.max())
+
+
 def measured_profile_bw(torch, dev) -> dict:
     """The card's memory rate from a device-to-device copy of 1 GiB:
     bytes read plus bytes written over the median copy time."""
@@ -897,6 +916,374 @@ def plan_phase(torch, np, clock, ks, dev, chicago, lane0):
                 "tensors": tiles, "seconds": tiles_s},
             "launches": launches, "compare_launches": compare_launches,
             "phase_s": clock.now() - t_phase}
+
+
+def factors_close(np, got, ref, tol: float = 1e-3):
+    """``(max abs difference, all within rtol = atol = tol)`` of two factor
+    lists."""
+    diff = max(float(np.max(np.abs(a - b))) for a, b in zip(got, ref))
+    ok = all(np.allclose(a, b, rtol=tol, atol=tol) for a, b in zip(got, ref))
+    return diff, ok
+
+
+def b1e_factors(torch, np, shape, dev):
+    """The seeded factors the B1e check runs on, on every rank."""
+    rng = np.random.default_rng(23)
+    return [torch.as_tensor(rng.standard_normal((I, RANK)).astype(np.float32), device=dev)
+            for I in shape]
+
+
+def dist_runs(torch, np, clock, ks, mesh, t, w):
+    """One rank's part of the ``dist`` phase on the chicago stand-in ``t``:
+    five distributed decompositions, then one window of the slab kernel's
+    branch with a mesh (B1e) on this rank's packed shard, counted from 0,
+    and each mode's B1e MTTKRP, kernel against plain, and times."""
+    import dataclasses
+
+    from repro_torch.core import als_device
+    from repro_torch.core.distributed import (_collect_dist_data,
+                                              collective_payload_bytes,
+                                              cpd_als_distributed,
+                                              make_distributed_plan,
+                                              resolve_collectives,
+                                              shard_slab_mode_data)
+    from repro_torch.core.load_balance import Scheme
+    from repro_torch.obs import trace
+
+    dev = mesh.device
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = clock.now()
+    plans = {"cp": make_distributed_plan(t, mesh),
+             "nnz": make_distributed_plan(t, mesh, scheme=Scheme.NNZ_PARTITION),
+             "masked": make_distributed_plan(t, mesh, method="masked", weights=w)}
+    plan_s = clock.now() - t0
+    # One sweep first: the communicator and the solver's handles are set
+    # up at first use, not in a timed window.
+    cpd_als_distributed(t, RANK, plan=plans["cp"], n_iters=1)
+    runs = {}
+    for name, method, plan, coll in (
+            ("cp_psum", "cp", plans["cp"], "psum"),
+            ("cp_gather", "cp", plans["cp"], "gather"),
+            ("cp_nnz_partition", "cp", plans["nnz"], "psum"),
+            ("nncp", "nncp", dataclasses.replace(plans["cp"], method="nncp"), "psum"),
+            ("masked", "masked", plans["masked"], "psum")):
+        stats0 = dict(mesh.stats)
+        sync()
+        with trace.capture() as tr:
+            t0 = clock.now()
+            res = cpd_als_distributed(t, RANK, plan=plan, n_iters=DIST_SWEEPS,
+                                      check_every=DIST_CHECK, method=method,
+                                      collective=coll)
+            wall = clock.now() - t0
+        windows = [r["dur_us"] / 1e3 for r in tr.records() if r["name"] == "dist.window"]
+        colls = resolve_collectives(plan, coll)
+        runs[name] = {
+            "method": method, "collective": coll, "fits": res.fits,
+            "factors": res.factors, "weights": res.weights, "iters": res.iters,
+            "host_syncs": res.host_syncs, "wall_s": wall, "window_ms": windows,
+            "median_window_ms": statistics.median(windows),
+            "schemes": [m.scheme.value for m in plan.modes],
+            "payload_bytes": collective_payload_bytes(plan, RANK, colls),
+            **{f"{k}_per_sweep": (mesh.stats[k] - stats0[k]) / res.iters
+               for k in ("collectives", "staged_copies", "wait_s")}}
+
+    # B1e: one window of build_sweep_fn("slab", axis=mesh) from the seeded
+    # init, the launches counted from 0 and read before any comparison.
+    cp_plan = plans["cp"]
+    md, meta = shard_slab_mode_data(cp_plan, RANK)
+    _, fit_data = _collect_dist_data(cp_plan)
+    shapes = tuple(int(s) for s in t.shape)
+    solver = als_device.resolve_solver("auto", dev)
+    window = als_device._build_sweep_block("slab", t.nmodes, RANK, shapes, meta, solver,
+                                           DIST_CHECK, "cp", mesh)
+    state = als_device.init_state(shapes, RANK, 0, device=dev)
+    sync()
+    reset_launches(ks)
+    _, win_fits, win_ok = window(state, md, fit_data)
+    sync()
+    launches = ks.LAUNCHES["mttkrp_slab"]
+    win_fits, win_ok = win_fits.tolist(), bool(win_ok)
+    max_memory = torch.cuda.max_memory_allocated(dev) if cuda else None
+
+    F = b1e_factors(torch, np, shapes, dev)
+    ctx = als_device.make_sweep_context("slab", t.nmodes, RANK, shapes, meta, solver,
+                                        axis=mesh)
+    outs, modes = [], []
+    r = mesh.rank
+    for d, m in enumerate(cp_plan.modes):
+        outs.append(ctx.one_mttkrp(d, md[d], [F], None)[0].cpu().numpy())
+        idxp, valsp, lrowsp, rb_of, chunks, _ = md[d]
+        nrb, br, tile, rblk = meta[d]
+        kw = dict(num_row_blocks=nrb, block_rows=br, tile=tile)
+        in_f = [F[v] for v in m.input_modes]
+        kernel = functools.partial(ks.mttkrp_slab, idxp, valsp, lrowsp, rb_of, in_f,
+                                   chunks=chunks, rank_block=rblk, **kw)
+        k = kernel()
+        plain = ks.mttkrp_slab_plain(idxp, valsp, lrowsp, rb_of, in_f, **kw)
+        mag = ks.mttkrp_slab_plain(idxp, valsp.abs(), lrowsp, rb_of,
+                                   [f.abs() for f in in_f], **kw)
+        sync()
+        entry = {"mode": d, "scheme": m.scheme.value, "shard_nnz": m.nnz_per_dev,
+                 "nonzero_values": int(np.count_nonzero(m.vals[r])),
+                 "slabs": int(rb_of.shape[0]),
+                 "max_abs_err": float((k - plain).abs().max()),
+                 "tol": 1e-5 * float(mag.max())}
+        del plain, mag
+        if cuda:
+            partial = k[:m.num_rows]
+            slots = int(rb_of.shape[0]) * tile
+            entry.update(
+                ms=cuda_ms(torch, kernel, TIMED_LAUNCHES),
+                plain_ms=cuda_ms(torch, lambda: ks.mttkrp_slab_plain(
+                    idxp, valsp, lrowsp, rb_of, in_f, **kw), 5),
+                psum_ms=cuda_ms(torch, lambda: mesh.psum(partial), TIMED_LAUNCHES),
+                **slab_bound(slots, len(in_f), chunks.numel(),
+                             sum(shapes[v] for v in m.input_modes), nrb * br))
+            # The shard's entries in relabeled rows; its zero-valued padding
+            # (repeated coordinates) adds nothing and is left out.
+            real = m.vals[r] != 0
+            coords = np.zeros((int(real.sum()), t.nmodes), np.int64)
+            coords[:, d] = m.rows[r][real]
+            coords[:, list(m.input_modes)] = m.idx[r][real]
+            lib, _ = library_mttkrp(torch, np, coords, shapes, d, m.vals[r][real], in_f)
+            entry["library_ms"] = cuda_ms(torch, lib, 5)
+            del lib
+            torch.cuda.empty_cache()
+        modes.append(entry)
+    return {"rank": r, "size": mesh.size, "backend": mesh.backend, "device": str(dev),
+            "plan_s": plan_s, "runs": runs,
+            "b1e": {"launches": launches, "window_fits": win_fits, "window_ok": win_ok,
+                    "mttkrp": outs, "modes": modes},
+            "max_memory_allocated": max_memory, "mesh_stats": dict(mesh.stats)}
+
+
+def pod_runs(torch, np, clock, ks, mesh, lanes, lane_w, cap):
+    """One rank's part of the ``pod`` phase: ``BatchedEngine(mesh=...)`` on
+    the first ``POD_REQUESTS`` requests of the uber bucket per method, each
+    run's launches counted from 0."""
+    from repro_torch.obs import trace
+    from repro_torch.serve import BatchedEngine
+
+    cuda = mesh.device.type == "cuda"
+    out = {}
+    for method in METHODS:
+        eng = BatchedEngine(RANK, backend="slab", check_every=DIST_CHECK, mesh=mesh,
+                            batch_quantum=POD_QUANTUM)
+        t0 = clock.now()
+        prep = eng.prepare_batch(lanes, n_iters=DIST_SWEEPS, tol=-1.0,
+                                 seeds=list(range(len(lanes))), nnz_cap=cap,
+                                 method=method,
+                                 **({"weights": lane_w} if method == "masked" else {}))
+        prep_s = clock.now() - t0
+        reset_launches(ks)
+        with trace.capture() as tr:
+            if cuda:
+                res, wall, dev_ms, kernel_ms = device_run(
+                    torch, clock, lambda: eng.execute_prepared(prep))
+            else:
+                t0 = clock.now()
+                res, dev_ms, kernel_ms = eng.execute_prepared(prep), None, None
+                wall = clock.now() - t0
+        launches = ks.LAUNCHES["mttkrp_slab_batched"]
+        recs = {r["name"]: r["args"] for r in tr.records()
+                if r["name"] in ("pod.window", "pod.dispatch")}
+        window, dispatch = recs["pod.window"], recs["pod.dispatch"]
+        out[method] = {
+            "results": [{"fits": x.fits, "factors": x.factors, "weights": x.weights,
+                         "iters": x.iters, "host_syncs": x.host_syncs,
+                         "engine": x.engine} for x in res],
+            "launches": launches, "prepare_s": prep_s, "execute_s": wall,
+            "device_ms": dev_ms, "kernel_ms": kernel_ms,
+            "device_ms_per_window": (None if dev_ms is None
+                                     else dev_ms / window["windows_queued"]),
+            "local_lanes": int(prep.carry[1].shape[0]), "window": window,
+            "dispatch": {k: dispatch.get(k) for k in (
+                "B", "devices", "B_per_device", "device_nnz", "lane_placement",
+                "imbalance", "imbalance_contiguous", "device_nnz_contiguous")}}
+    return out
+
+
+def rank_work(mesh, cfg):
+    """A spawned rank of the kappa = 2 mesh: the parent's chicago stand-in
+    and uber requests, loaded from ``cfg["inputs"]``, then its part of
+    ``dist`` and ``pod`` (the batch mesh is the same process group)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.coo import SparseTensor
+    from repro_torch.kernels import mttkrp_slab as ks
+    from repro_torch.launch import make_batch_mesh
+    from repro_torch.obs import clock
+
+    t0 = clock.now()
+    with np.load(cfg["inputs"]) as z:
+        t = SparseTensor(z["t_indices"], z["t_values"], tuple(int(s) for s in z["t_shape"]))
+        w = z["w"]
+        lanes = [SparseTensor(z[f"lane{b}_indices"], z[f"lane{b}_values"], UBER_SHAPE)
+                 for b in range(cfg["requests"])]
+        lane_w = [z[f"lane{b}_w"] for b in range(cfg["requests"])]
+    load_s = clock.now() - t0
+    dist = dist_runs(torch, np, clock, ks, mesh, t, w)
+    del t, w
+    pod = pod_runs(torch, np, clock, ks, make_batch_mesh(device=cfg["device"]),
+                   lanes, lane_w, cfg["cap"])
+    return {"load_s": load_s, "dist": dist, "pod": pod}
+
+
+def dist_pod_phases(torch, np, clock, ks, t, w, refs, lanes, lane_w, cap, batched_res, cfg):
+    """The ``dist`` and ``pod`` phases: kappa = 1 over NCCL in this process,
+    then kappa = 2 over gloo on spawned ranks sharing the one card, each
+    held against the single-device results ``refs`` (cp, nncp, masked on
+    the chicago stand-in) and ``batched_res`` (the batched phase)."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.core.mttkrp import make_plan, mttkrp
+    from repro_torch.launch import init_ranks, make_batch_mesh, spawn_ranks
+
+    build_dir = ROOT / "build"
+    build_dir.mkdir(exist_ok=True)
+    t0 = clock.now()
+    mesh = init_ranks(0, 1, f"file://{tempfile.mkdtemp(dir=build_dir)}/rendezvous",
+                      device=cfg["device"])
+    try:
+        one = {"dist": dist_runs(torch, np, clock, ks, mesh, t, w),
+               "pod": pod_runs(torch, np, clock, ks, make_batch_mesh(1, device=cfg["device"]),
+                               lanes[:cfg["requests"]], lane_w[:cfg["requests"]], cap)}
+    finally:
+        dist.destroy_process_group()
+    k1_s = clock.now() - t0
+    t0 = clock.now()
+    # The ranks load this process's inputs rather than generate their own.
+    workdir = Path(tempfile.mkdtemp(dir=build_dir))
+    n = cfg["requests"]
+    np.savez(workdir / "inputs.npz", t_indices=t.indices, t_values=t.values,
+             t_shape=np.asarray(t.shape), w=w,
+             **{f"lane{b}_{k}": v for b in range(n) for k, v in (
+                 ("indices", lanes[b].indices), ("values", lanes[b].values),
+                 ("w", lane_w[b]))})
+    cfg = {**cfg, "inputs": str(workdir / "inputs.npz")}
+    try:
+        two = spawn_ranks(rank_work, 2, (cfg,), timeout=RANK_TIMEOUT_S, device=cfg["device"],
+                          workdir=workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    k2_s = clock.now() - t0
+    ranks = {1: [one], 2: two}
+
+    # -- dist gates ------------------------------------------------------------
+    single_plan = make_plan(t, 1, device=cfg["device"])
+    F = b1e_factors(torch, np, t.shape, torch.device(cfg["device"]))
+    single = [mttkrp(single_plan, F, d, backend="slab").cpu().numpy()
+              for d in range(t.nmodes)]
+    single_tol = [1e-5 * abs_mttkrp_max(ks, single_plan, F, d) for d in range(t.nmodes)]
+    ref_of = {"cp_psum": refs["cp"], "cp_gather": refs["cp"], "cp_nnz_partition": refs["cp"],
+              "nncp": refs["nncp"], "masked": refs["masked"]}
+    dist_out = {}
+    for kappa, per_rank in ranks.items():
+        rows = {"backend": per_rank[0]["dist"]["backend"], "runs": {}, "ranks": []}
+        for name, ref in ref_of.items():
+            got = [x["dist"]["runs"][name] for x in per_rank]
+            fit_gap_ = fit_gap(np, got[0]["fits"], ref.fits)
+            fdiff, fok = factors_close(np, got[0]["factors"], ref.factors)
+            check(fit_gap_ <= 1e-4 and fok,
+                  f"dist kappa {kappa} {name}: fits off by {fit_gap_}, factors by {fdiff}")
+            check(all(g["host_syncs"] == 3 and g["iters"] == DIST_SWEEPS for g in got),
+                  f"dist kappa {kappa} {name}: host_syncs {[g['host_syncs'] for g in got]}")
+            same = all(g["fits"] == got[0]["fits"]
+                       and all(np.array_equal(a, b) for a, b in zip(g["factors"], got[0]["factors"]))
+                       for g in got)
+            check(same, f"dist kappa {kappa} {name}: factors differ across ranks")
+            rows["runs"][name] = {
+                "schemes": got[0]["schemes"], "fits": got[0]["fits"],
+                "fit_gap_vs_single": fit_gap_, "factor_diff_vs_single": fdiff,
+                "host_syncs": got[0]["host_syncs"], "ranks_bitwise": same,
+                "payload_bytes_per_sweep": got[0]["payload_bytes"],
+                "per_rank": [{k: g[k] for k in (
+                    "wall_s", "median_window_ms", "window_ms", "collectives_per_sweep",
+                    "staged_copies_per_sweep", "wait_s_per_sweep")} for g in got]}
+        psum, gather = (per_rank[0]["dist"]["runs"][n] for n in ("cp_psum", "cp_gather"))
+        g_fit = fit_gap(np, gather["fits"], psum["fits"])
+        g_diff, g_ok = factors_close(np, gather["factors"], psum["factors"])
+        check(g_fit <= 1e-4 and g_ok, f"dist kappa {kappa}: gather vs psum {g_fit} {g_diff}")
+        if kappa > 1:
+            check(gather["payload_bytes"] < psum["payload_bytes"],
+                  f"dist kappa {kappa}: gather payload {gather['payload_bytes']} not "
+                  f"below psum's {psum['payload_bytes']}")
+            check(per_rank[0]["dist"]["runs"]["cp_nnz_partition"]["schemes"]
+                  == [2] * t.nmodes, "dist: the forced scheme 2 did not hold")
+        for x in per_rank:
+            b = x["dist"]["b1e"]
+            check(b["launches"] == DIST_CHECK * t.nmodes,
+                  f"dist kappa {kappa} rank {x['dist']['rank']}: B1e window launched "
+                  f"the kernel {b['launches']} times")
+            check(b["window_ok"], "dist: B1e window flagged a solve")
+            w_gap = fit_gap(np, b["window_fits"], refs["cp"].fits[:DIST_CHECK])
+            check(w_gap <= 1e-5, f"dist kappa {kappa}: B1e window fits off by {w_gap}")
+            errs = []
+            for d, (got_m, ref_m, tol) in enumerate(zip(b["mttkrp"], single, single_tol)):
+                err = float(np.max(np.abs(got_m - ref_m)))
+                check(err <= tol, f"dist kappa {kappa} B1e mode {d}: {err} > {tol}")
+                m = b["modes"][d]
+                check(m["max_abs_err"] <= m["tol"], f"dist kappa {kappa} B1e mode {d}: "
+                      f"kernel vs plain {m['max_abs_err']} > {m['tol']}")
+                errs.append(err)
+            rows["ranks"].append({
+                "rank": x["dist"]["rank"], "plan_s": x["dist"]["plan_s"],
+                "b1e_launches": b["launches"], "b1e_window_fit_gap": w_gap,
+                "b1e_err_vs_single": errs, "b1e_tol_vs_single": single_tol,
+                "b1e_modes": b["modes"],
+                "max_memory_allocated": x["dist"]["max_memory_allocated"],
+                "mesh_stats": x["dist"]["mesh_stats"]})
+        dist_out[f"kappa{kappa}"] = rows
+
+    # -- pod gates ------------------------------------------------------------------
+    pod_out = {}
+    for kappa, per_rank in ranks.items():
+        rows = {}
+        for method in METHODS:
+            got = [x["pod"][method] for x in per_rank]
+            res0 = got[0]["results"]
+            check(len(res0) == cfg["requests"], f"pod kappa {kappa} {method}: "
+                                                f"{len(res0)} results")
+            gaps, bitwise = [], True
+            for b, r in enumerate(res0):
+                ref = batched_res[method][b]
+                gaps.append(fit_gap(np, r["fits"], ref.fits))
+                bitwise &= (r["fits"] == ref.fits and all(
+                    np.array_equal(a, c) for a, c in zip(r["factors"], ref.factors)))
+            check(max(gaps) <= 1e-5, f"pod kappa {kappa} {method}: lanes off by {gaps}")
+            for g in got:
+                check(all(r["host_syncs"] == 1 and r["engine"] == "pod" for r in g["results"]),
+                      f"pod kappa {kappa} {method}: host_syncs / engine")
+                check(g["window"]["windows"] == -(-DIST_SWEEPS // DIST_CHECK),
+                      f"pod kappa {kappa} {method}: windows {g['window']}")
+                check(g["launches"] == DIST_SWEEPS * len(UBER_SHAPE),
+                      f"pod kappa {kappa} {method}: {g['launches']} batched launches")
+            same = all(all(a["fits"] == c["fits"] and all(
+                np.array_equal(x, y) for x, y in zip(a["factors"], c["factors"]))
+                for a, c in zip(g["results"], res0)) for g in got)
+            check(same, f"pod kappa {kappa} {method}: ranks disagree")
+            rows[method] = {
+                "max_fit_gap_vs_batched": max(gaps), "bitwise_vs_batched": bitwise,
+                "ranks_bitwise": same, "host_syncs": res0[0]["host_syncs"],
+                "per_rank": [{k: g[k] for k in (
+                    "launches", "prepare_s", "execute_s", "device_ms", "kernel_ms",
+                    "device_ms_per_window", "local_lanes", "window", "dispatch")}
+                    for g in got]}
+        pod_out[f"kappa{kappa}"] = rows
+    return ({"phase": "dist", "tensor": "chicago", "shape": list(t.shape), "nnz": t.nnz,
+             "rank": RANK, "sweeps": DIST_SWEEPS, "check_every": DIST_CHECK,
+             "kappa1_s": k1_s, "kappa2_s": k2_s,
+             "kappa2_load_s": [x["load_s"] for x in two], **dist_out},
+            {"phase": "pod", "requests": cfg["requests"], "batch_quantum": POD_QUANTUM,
+             "shape": list(UBER_SHAPE), "nnz_cap": cap, "rank": RANK,
+             "sweeps": DIST_SWEEPS, "check_every": DIST_CHECK, **pod_out})
 
 
 def main() -> int:
@@ -1405,6 +1792,16 @@ def main() -> int:
     plan_out = plan_phase(torch, np, clock, ks, dev, t, lanes[0])
     emit(plan_out)
 
+    # -- dist and pod: the mesh paths, kappa = 1 (NCCL) and 2 (gloo, one card) ---
+    t0 = clock.now()
+    cfg = {"device": "cuda", "requests": POD_REQUESTS, "cap": cap}
+    dist_out, pod_out = dist_pod_phases(
+        torch, np, clock, ks, t, w, {"cp": res, "nncp": nn, "masked": mk}, lanes, lane_w,
+        cap, batched_res, cfg)
+    dist_out["phase_s"] = pod_out["phase_s"] = clock.now() - t0
+    emit(dist_out)
+    emit(pod_out)
+
     def kernel_entry(name, modes, launches, err, phases):
         return {
             "name": name, "route": "cuda",
@@ -1426,7 +1823,10 @@ def main() -> int:
                      max(m["max_abs_err"] for m in modes),
                      {"main_path": launches, "methods": nn_launches["mttkrp_slab"],
                       "stream": new_phases["stream"]["launches"],
-                      "plan": plan_out["launches"]}),
+                      "plan": plan_out["launches"],
+                      "dist": dist_out["kappa1"]["ranks"][0]["b1e_launches"],
+                      "dist_kappa2_ranks": [x["b1e_launches"]
+                                            for x in dist_out["kappa2"]["ranks"]]}),
         kernel_entry("mttkrp_slab_valued", valued_modes,
                      mk_launches["mttkrp_slab_valued"],
                      max(m["max_abs_err"] for m in valued_modes),
@@ -1438,7 +1838,12 @@ def main() -> int:
                      {"batched": batched_launches,
                       "service": service["sync"]["launches"]
                       + service["double_buffer"]["launches"]
-                      + service["runner_stream"]["launches"]}),
+                      + service["runner_stream"]["launches"],
+                      "pod": sum(pod_out["kappa1"][m]["per_rank"][0]["launches"]
+                                 for m in METHODS),
+                      "pod_kappa2_ranks": [
+                          sum(pod_out["kappa2"][m]["per_rank"][r]["launches"]
+                              for m in METHODS) for r in range(2)]}),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

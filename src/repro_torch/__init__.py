@@ -9,7 +9,9 @@ lockstep on one device.  Users meet the service through
 ``DecompositionService`` (micro-batching scheduler and metrics) or
 ``runtime.ALSRunner``, and keep a decomposition current as nonzeros arrive
 with ``methods.StreamingCP`` (checkpointed through
-``checkpoint.CheckpointManager``).  Their MTTKRP runs through the hand-written
+``checkpoint.CheckpointManager``).  ``core.distributed.cpd_als_distributed``
+and ``BatchedEngine(mesh=...)`` run across the ranks of a
+``repro_torch.launch`` mesh.  Their MTTKRP runs through the hand-written
 Hopper kernel in ``csrc/mttkrp_slab.cu`` (the counterpart of the Pallas
 kernel in ``repro/kernels/mttkrp_pallas.py``).
 

@@ -29,6 +29,16 @@ whatever B is.  (The reference gets the same from ``jax.vmap``; in
 PyTorch a batched matmul or reduction may pick another kernel, and so
 another summation order, for another B.)
 
+Distributed sweeps.  With ``axis`` (a ``launch.mesh.Mesh``) mode data and
+fit data are one rank's shards (``core.distributed``) and the sweep sums
+the partial MTTKRP outputs and the fit's inner product (or residual mass)
+over the mesh -- the reference's ``lax.psum`` at the same points.  On the
+slab backend that is the kernel on this rank's packed shard, then
+``mesh.psum``, then the unrelabel (the reference's pallas branch with
+``axis``); scheme-1 modes of the segment backend may all-gather their
+owned rows instead (``collectives``).  State stays replicated: every rank
+computes the same update from the same summed MTTKRP.
+
 Window functions are cached per (backend, nmodes, rank, shapes, slab
 tiling, solver, block length, method), as the reference caches its
 compiled sweep blocks; ``sweep_cache_stats()`` exposes the hits and
@@ -50,8 +60,8 @@ import torch
 from ..convert import state_from_reference
 from ..device import resolve_device
 from ..kernels import ref as kref
-from ..kernels.mttkrp_slab import (mttkrp_slab_batched, mttkrp_slab_valued,
-                                   scatter_slab_values)
+from ..kernels.mttkrp_slab import (mttkrp_slab, mttkrp_slab_batched,
+                                   mttkrp_slab_valued, scatter_slab_values)
 from ..obs import clock as obs_clock
 from ..obs import trace as obs_trace
 from ..obs.ledger import LEDGER
@@ -79,36 +89,67 @@ def resolve_solver(solver: str, device) -> str:
 
 
 def _build_one_mttkrp(backend: str, nmodes: int, shapes: tuple[int, ...],
-                      slab_meta: tuple | None):
+                      slab_meta: tuple | None, axis=None,
+                      collectives: tuple[str, ...] | None = None):
     """``one_mttkrp(d, mode_data, factors) -> (I_d, R)`` in original row
     order, with values baked into the mode data:
 
       slab:    (idx_packed, vals_packed, lrows_packed, rb_of, chunks, row_perm)
       segment: (idx, rows, vals, row_perm)
       coo:     (indices, values)
+
+    With ``axis`` (a mesh) the mode data is this rank's shard (for slab,
+    the shard packed by ``kernels.ops.pack_slabs``) and the partial
+    outputs are summed over the mesh before the unrelabel.
+    ``collectives[d] == "gather"`` (segment, scheme 1 only): each rank
+    all-gathers just its owned relabeled rows and their original-row
+    destinations and scatters them into a buffer whose dummy row I_d
+    absorbs the padding slots; mode data widens to ``(idx, rows, vals,
+    row_perm, own_rows, gather_dst)`` (``core.plan.DeviceShards``).
     """
     in_modes = [tuple(w for w in range(nmodes) if w != d)
                 for d in range(nmodes)]
 
     def one_mttkrp(d, mode_data, factors):
+        in_f = [factors[w] for w in in_modes[d]]
         if backend == "slab":
-            return slab_backend(mode_data, [factors[w] for w in in_modes[d]],
-                                shapes[d], slab_meta[d])
+            if axis is None:
+                return slab_backend(mode_data, in_f, shapes[d], slab_meta[d])
+            idxp, valsp, lrowsp, rb_of, chunks, row_perm = mode_data
+            nrb, br, tile, rblk = slab_meta[d]
+            out = mttkrp_slab(idxp, valsp, lrowsp, rb_of, in_f, chunks=chunks,
+                              num_row_blocks=nrb, block_rows=br, tile=tile,
+                              rank_block=rblk)[:shapes[d]]
+            return unrelabel_rows(axis.psum(out), row_perm)
         if backend == "segment":
+            if collectives is not None and collectives[d] == "gather":
+                idx, rows, vals, row_perm, own_rows, gather_dst = mode_data
+                out = kref.mttkrp_sorted_segments(idx, rows, vals, in_f,
+                                                  shapes[d])
+                R = out.shape[-1]
+                g_vals = axis.all_gather(out.index_select(0, own_rows))
+                g_dst = axis.all_gather(gather_dst)
+                full = torch.zeros((shapes[d] + 1, R), dtype=out.dtype,
+                                   device=out.device)
+                full.index_copy_(0, g_dst.reshape(-1).long(),
+                                 g_vals.reshape(-1, R))
+                return full[:shapes[d]]
             idx, rows, vals, row_perm = mode_data
-            out = kref.mttkrp_sorted_segments(
-                idx, rows, vals, [factors[w] for w in in_modes[d]], shapes[d])
+            out = kref.mttkrp_sorted_segments(idx, rows, vals, in_f, shapes[d])
+            if axis is not None:
+                out = axis.psum(out)
             return unrelabel_rows(out, row_perm)
         if backend == "coo":
             indices, values = mode_data
-            return kref.mttkrp_coo(indices, values, list(factors), d, shapes[d])
+            out = kref.mttkrp_coo(indices, values, list(factors), d, shapes[d])
+            return out if axis is None else axis.psum(out)
         raise ValueError(f"unknown backend {backend!r}")
 
     return one_mttkrp
 
 
 def _build_valued_mttkrp(backend: str, nmodes: int, shapes: tuple[int, ...],
-                         slab_meta: tuple | None):
+                         slab_meta: tuple | None, axis=None):
     """``mttkrp_valued(d, mode_data, factors, vals) -> (I_d, R)``: the
     valued entry.  Mode data carries only the structural layout arrays; a
     fresh canonical-order value vector (the masked method's per-sweep
@@ -118,9 +159,29 @@ def _build_valued_mttkrp(backend: str, nmodes: int, shapes: tuple[int, ...],
                 val_scatter)            vals[perm] scattered into the slabs
       segment: (idx, rows, row_perm, perm)     vals_layout = vals[perm]
       coo:     (indices,)                      canonical order already
+
+    With ``axis`` (the distributed engine, segment backend only) the mode
+    data is this rank's valued shard ``(idx, rows, row_perm, idx_full,
+    vals, ew)``, ``vals`` arrives in the shard's own order (the residual
+    at the shard's coordinates, ``MethodSpec.shard_values``) and the
+    partial outputs are summed over the mesh.
     """
     in_modes = [tuple(w for w in range(nmodes) if w != d)
                 for d in range(nmodes)]
+
+    if axis is not None:
+        if backend != "segment":
+            raise NotImplementedError(
+                "the distributed valued MTTKRP runs on the segment backend, "
+                f"got {backend!r}")
+
+        def mttkrp_valued_dist(d, mode_data, factors, vals):
+            idx, rows, row_perm = mode_data[:3]
+            out = kref.mttkrp_sorted_segments(
+                idx, rows, vals, [factors[w] for w in in_modes[d]], shapes[d])
+            return unrelabel_rows(axis.psum(out), row_perm)
+
+        return mttkrp_valued_dist
 
     def mttkrp_valued(d, mode_data, factors, vals):
         if backend == "slab":
@@ -147,7 +208,8 @@ def _build_valued_mttkrp(backend: str, nmodes: int, shapes: tuple[int, ...],
 
 
 def _build_lane_mttkrp(backend: str, nmodes: int, shapes: tuple[int, ...],
-                       slab_meta: tuple | None, valued: bool, batched: bool):
+                       slab_meta: tuple | None, valued: bool, batched: bool,
+                       axis=None, collectives: tuple[str, ...] | None = None):
     """``mttkrp_lanes(d, mode_data, factor_lanes, value_lanes) -> [M per
     lane]`` (``value_lanes`` is None unless ``valued``).
 
@@ -157,8 +219,13 @@ def _build_lane_mttkrp(backend: str, nmodes: int, shapes: tuple[int, ...],
     dimension (``serve.batched_engine``) and ONE launch of the batched
     kernel; the other backends take a list of per-lane mode data and run
     each lane's MTTKRP in turn."""
-    single = (_build_valued_mttkrp if valued else _build_one_mttkrp)(
-        backend, nmodes, shapes, slab_meta)
+    if valued:
+        single = _build_valued_mttkrp(backend, nmodes, shapes, slab_meta, axis)
+    else:
+        single = _build_one_mttkrp(backend, nmodes, shapes, slab_meta, axis,
+                                   collectives)
+    if batched and axis is not None:
+        raise ValueError("a distributed sweep runs one lane per rank")
     if not batched:
         def one_lane(d, mode_data, factor_lanes, value_lanes):
             if valued:
@@ -249,10 +316,12 @@ def normalize_columns(Yd):
     return Yd / lam, lam
 
 
-def _build_sparse_fit(nmodes: int, rank: int):
+def _build_sparse_fit(nmodes: int, rank: int, axis=None):
     """On-device sparse fit: ``<X, X_hat>`` over the nnz plus the
     gram-product model norm; no dense reconstruction, no host read.
-    ``fit_data = (index columns, values, norm_x_sq)``."""
+    ``fit_data = (index columns, values, norm_x_sq)``.  With ``axis`` the
+    nnz are this rank's shard and the inner product is summed over the
+    mesh."""
 
     def sparse_fit(factors, grams, weights, fit_data):
         idx_cols, values, norm_x_sq = fit_data
@@ -260,6 +329,8 @@ def _build_sparse_fit(nmodes: int, rank: int):
         for d in range(1, nmodes):
             acc = acc * factors[d].index_select(0, idx_cols[d])
         ip = values @ (acc @ weights)
+        if axis is not None:
+            ip = axis.psum(ip)
         V = _hadamard_grams(grams, rank)
         model_sq = weights @ V @ weights
         resid_sq = torch.clamp(norm_x_sq - 2.0 * ip + model_sq, min=0.0)
@@ -269,17 +340,21 @@ def _build_sparse_fit(nmodes: int, rank: int):
     return sparse_fit
 
 
-def _build_weighted_fit(nmodes: int, rank: int):
+def _build_weighted_fit(nmodes: int, rank: int, axis=None):
     """Observed-only weighted fit of the masked method:
     ``1 - sqrt(sum_e w_e (x_e - model_e)^2) / sqrt(sum_e w_e x_e^2)``.
     ``fit_data = (indices, values, entry_weights, weighted_norm_sq)``;
     weight-0 entries (nnz padding, or entries the caller masked out) add
-    exactly +0.0.  ``grams`` is unused; the signature is the sparse fit's."""
+    exactly +0.0.  ``grams`` is unused; the signature is the sparse fit's.
+    With ``axis`` the residual mass of this rank's shard is summed over
+    the mesh."""
 
     def weighted_fit(factors, grams, weights, fit_data):
         indices, values, ew, norm_x_sq = fit_data
         resid = values - kref.cp_model_at_coords(indices, factors, weights)
         resid_sq = torch.sum(ew * resid * resid)
+        if axis is not None:
+            resid_sq = axis.psum(resid_sq)
         return 1.0 - torch.sqrt(resid_sq) / torch.clamp(
             torch.sqrt(norm_x_sq), min=1e-12)
 
@@ -336,20 +411,23 @@ class SweepContext:
 def make_sweep_context(backend: str, nmodes: int, rank: int,
                        shapes: tuple[int, ...], slab_meta: tuple | None,
                        solver: str, valued: bool = False,
-                       batched: bool = False) -> SweepContext:
+                       batched: bool = False, axis=None,
+                       collectives: tuple[str, ...] | None = None
+                       ) -> SweepContext:
     """The context a sweep hands its method: the lane MTTKRP of the
     value-baked (``valued=False``) or valued entry, for one lane or a
-    batch, and the shared solve, normalization, Hadamard and fits."""
+    batch, and the shared solve, normalization, Hadamard and fits
+    (summed over the mesh ``axis`` when one is given)."""
     lane_mttkrp = _build_lane_mttkrp(backend, nmodes, shapes, slab_meta,
-                                     valued, batched)
+                                     valued, batched, axis, collectives)
     return SweepContext(
         nmodes=nmodes, rank=rank, shapes=shapes,
         one_mttkrp=None if valued else lane_mttkrp,
         mttkrp_valued=lane_mttkrp if valued else None,
         solve=_solve_with_rescue(_build_solver(rank, solver)),
         normalize=normalize_columns,
-        sparse_fit=_build_sparse_fit(nmodes, rank),
-        weighted_fit=_build_weighted_fit(nmodes, rank),
+        sparse_fit=_build_sparse_fit(nmodes, rank, axis),
+        weighted_fit=_build_weighted_fit(nmodes, rank, axis),
         hadamard=functools.partial(_hadamard_grams, rank=rank),
     )
 
@@ -385,20 +463,27 @@ def _method_spec(method: str):
 
 def build_lane_sweep(backend: str, nmodes: int, rank: int,
                      shapes: tuple[int, ...], slab_meta: tuple | None,
-                     solver: str, method: str = "cp", batched: bool = False):
+                     solver: str, method: str = "cp", batched: bool = False,
+                     axis=None, collectives: tuple[str, ...] | None = None):
     """One full sweep over lanes: ``sweep(states, mode_data_all, fit_data,
     rescue=False) -> (states, fits, oks)``, one entry per lane in each
     list.  ``mode_data_all`` is one lane's (``batched=False``) or the
     batch's (see ``_build_lane_mttkrp``); ``fit_data`` has one entry per
     lane.  ``oks[b]`` is lane b's on-device solve flag (None for a method
     without a solve).  No state is updated in place, so a caller may keep
-    the previous one."""
+    the previous one.  With ``axis`` the one lane is this rank's shard
+    (see ``build_sweep_fn``)."""
     spec = _method_spec(method)
     valued = spec is not None and spec.valued_mode_data
     ctx = make_sweep_context(backend, nmodes, rank, shapes, slab_meta, solver,
-                             valued, batched)
+                             valued, batched, axis, collectives)
     update = spec.update if spec is not None and spec.update else cp_update
     values_for = spec.mttkrp_values if valued else None
+    if valued and axis is not None:
+        if spec.shard_values is None:
+            raise NotImplementedError(
+                f"method {method!r} has no values at a rank's shard")
+        shard_values = spec.shard_values
     mttkrp = ctx.mttkrp_valued if valued else ctx.one_mttkrp
     fit_fn = (ctx.weighted_fit if spec is not None and spec.weighted_fit
               else ctx.sparse_fit)
@@ -410,7 +495,10 @@ def build_lane_sweep(backend: str, nmodes: int, rank: int,
         oks = [[] for _ in states]
         for d in range(nmodes):
             vals = None
-            if valued:
+            if valued and axis is not None:
+                vals = [shard_values(ctx, factors[0], weights[0],
+                                     mode_data_all[d])]
+            elif valued:
                 vals = [values_for(ctx, F, w, fd)
                         for F, w, fd in zip(factors, weights, fit_data)]
             Ms = mttkrp(d, mode_data_all[d], factors, vals)
@@ -433,13 +521,29 @@ def build_lane_sweep(backend: str, nmodes: int, rank: int,
 
 def build_sweep_fn(backend: str, nmodes: int, rank: int,
                    shapes: tuple[int, ...], slab_meta: tuple | None,
-                   solver: str, method: str = "cp"):
+                   solver: str, method: str = "cp", axis=None,
+                   collectives: tuple[str, ...] | None = None):
     """One full sweep of one tensor: ``sweep(state, mode_data_all,
     fit_data, rescue=False) -> (state, fit, ok)``, the one-lane case of
     ``build_lane_sweep``.  ``rescue=True`` replaces a failed solve by
-    ``M @ pinv(Vr)``."""
+    ``M @ pinv(Vr)``.
+
+    ``axis``: a mesh (``launch.mesh.Mesh``); mode and fit data are then
+    this rank's shards and the partial MTTKRPs and the fit are summed over
+    it (the distributed path).  ``collectives``: per-mode "psum" or
+    "gather" for the distributed segment path (see
+    ``_build_one_mttkrp``)."""
+    if collectives is not None:
+        if axis is None or backend != "segment":
+            raise ValueError(
+                "per-mode collectives apply to the distributed segment "
+                "path only (axis set, backend='segment')")
+        if len(collectives) != nmodes or any(
+                c not in ("psum", "gather") for c in collectives):
+            raise ValueError(f"bad collectives {collectives!r}")
     lanes = build_lane_sweep(backend, nmodes, rank, shapes, slab_meta,
-                             solver, method)
+                             solver, method, axis=axis,
+                             collectives=collectives)
 
     def sweep(state, mode_data_all, fit_data, rescue=False):
         states, fits, oks = lanes([state], mode_data_all, [fit_data], rescue)
@@ -451,12 +555,15 @@ def build_sweep_fn(backend: str, nmodes: int, rank: int,
 @functools.lru_cache(maxsize=None)
 def _build_sweep_block(backend: str, nmodes: int, rank: int,
                        shapes: tuple[int, ...], slab_meta: tuple | None,
-                       solver: str, block: int, method: str = "cp"):
+                       solver: str, block: int, method: str = "cp",
+                       axis=None, collectives: tuple[str, ...] | None = None):
     """``run_block(state, mode_data_all, fit_data, rescue=False) ->
     (state, fits (block,), ok)``: ``block`` sweeps queued back to back with
-    no host read.  ``ok`` is None for a method without a solve."""
+    no host read (a gloo mesh's staged collectives aside).  ``ok`` is None
+    for a method without a solve.  With ``axis`` the build registers as
+    kind ``dist_block``."""
     sweep = build_sweep_fn(backend, nmodes, rank, shapes, slab_meta, solver,
-                           method)
+                           method, axis=axis, collectives=collectives)
 
     def run_block(state, mode_data_all, fit_data, rescue=False):
         fits, ok = [], None
@@ -467,6 +574,13 @@ def _build_sweep_block(backend: str, nmodes: int, rank: int,
                 ok = ok_s if ok is None else ok & ok_s
         return state, torch.stack(fits), ok
 
+    if axis is not None:
+        return LEDGER.register(
+            "dist_block",
+            (backend, nmodes, rank, shapes, slab_meta, solver, "kappa",
+             axis.size, "block", block, "method", method, "collectives",
+             collectives),
+            run_block)
     return LEDGER.register(
         "sweep_block",
         (backend, nmodes, rank, shapes, slab_meta, solver, "block", block,

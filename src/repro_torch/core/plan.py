@@ -1,5 +1,4 @@
-"""Static-shape partition plans (port of ``repro.core.plan``, less the
-distributed and pod parts).
+"""Static-shape partition plans (port of ``repro.core.plan``).
 
   * ``quantize_nnz`` -- the nnz cap of a (shape, nnz-bucket) class;
     ``session_cap`` -- a streaming session's monotone cap over it.
@@ -7,6 +6,14 @@ distributed and pod parts).
     size: any tensor with ``nnz <= nnz_cap`` packs into at most
     ``ceil(I_d / block_rows) + nnz_cap // tile`` slabs.
   * ``ModePlan`` / ``PartitionPlan`` -- the per-mode tiling decision.
+  * ``PodPlan`` / ``plan_pod`` / ``pod_lane_order`` -- how a dispatched
+    batch spreads over the ranks of a batch mesh (the pod path of
+    ``serve.batched_engine``).
+  * ``DeviceShards`` / ``build_device_shards`` / ``shard_fit_data`` --
+    per-rank rectangular slices of a mode layout and of the fit data (the
+    distributed engine, ``core.distributed``).
+
+The pod and shard plans are host numpy, bitwise the reference's.
 
 The tiling is the port's own.  ``(block_rows, tile)`` default to
 (128, 256) unless pinned.  ``rank_block`` is the widest rank block whose
@@ -40,6 +47,11 @@ import numpy as np
 from ..kernels import ops as kops
 from ..kernels.mttkrp_slab import DEFAULT_SMEM_BYTES, max_rank_block
 from ..obs import trace as obs_trace
+from .load_balance import Scheme
+
+# Per-rank nnz shards are padded up to a multiple of this, so tensors of
+# similar size share window functions.
+DEVICE_SHARD_QUANTUM = 64
 
 
 def quantize_nnz(nnz: int, *, mode: str = "quantum", quantum: int = 128,
@@ -342,3 +354,222 @@ def plan_tensor(tensor, rank: int, kappa: int = 1, *,
     cap = quantize_nnz(tensor.nnz) if nnz_cap is None else int(nnz_cap)
     return plan_bucket(tuple(int(s) for s in tensor.shape), cap, rank, kappa,
                        **tiling)
+
+
+# ---------------------------------------------------------------------------
+# Pod plans (the batch-mesh path)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class PodPlan:
+    """How a dispatched batch of one bucket class spreads over a batch
+    mesh: every rank runs the same batched window on a ``B / num_devices``
+    block of lanes.  ``dispatch_batch`` is the single sizing rule: the
+    batch is rounded up to ``batch_quantum`` and then to a mesh multiple;
+    the padding lanes repeat the last request and are discarded."""
+
+    bucket: PartitionPlan
+    num_devices: int
+    batch_quantum: int = 1
+
+    def dispatch_batch(self, batch: int) -> tuple[int, int]:
+        """(total dispatched B, per-rank block) for ``batch`` requests."""
+        if batch < 1:
+            raise ValueError("batch must be >= 1")
+        q = max(1, int(self.batch_quantum))
+        tot = -(-int(batch) // q) * q
+        n = max(1, int(self.num_devices))
+        tot = -(-tot // n) * n
+        return tot, tot // n
+
+
+def plan_pod(shape: tuple[int, ...], nnz_cap: int, rank: int,
+             kappa: int = 1, *, num_devices: int, batch_quantum: int = 1,
+             density: tuple | None = None, **tiling) -> PodPlan:
+    """Pod plan for a (shape, nnz_cap) bucket class: the bucket's
+    ``plan_bucket`` plus the batch-mesh sizing.  ``tiling`` pins
+    ``block_rows``/``tile``/``rank_block``/``smem_limit``."""
+    return PodPlan(
+        bucket=plan_bucket(tuple(int(s) for s in shape), int(nnz_cap),
+                           int(rank), int(kappa), density=density, **tiling),
+        num_devices=int(num_devices),
+        batch_quantum=int(batch_quantum),
+    )
+
+
+def pod_lane_order(nnz: list[int], num_devices: int) -> list[int]:
+    """Load-aware lane placement for the pod's contiguous split:
+    ``order[lane] = request index`` such that rank ``p`` runs lanes
+    ``order[p*per_dev:(p+1)*per_dev]``.  Requests are dealt heaviest
+    first (descending nnz, index-stable), each to the least-loaded rank
+    with a free lane; the identity is returned when that is no better
+    balanced than arrival order, when the batch is not a mesh multiple,
+    or when the mesh has one rank."""
+    B = len(nnz)
+    n = int(num_devices)
+    identity = list(range(B))
+    if n <= 1 or B == 0 or B % n:
+        return identity
+    per_dev = B // n
+    ranked = sorted(identity, key=lambda i: (-int(nnz[i]), i))
+    assign: list[list[int]] = [[] for _ in range(n)]
+    loads = [0] * n
+    for i in ranked:
+        d = min((p for p in range(n) if len(assign[p]) < per_dev),
+                key=lambda p: (loads[p], p))
+        assign[d].append(i)
+        loads[d] += int(nnz[i])
+    order = [i for dev in assign for i in dev]
+    if pod_imbalance(nnz, n, order) > pod_imbalance(nnz, n):
+        return identity
+    return order
+
+
+def pod_device_nnz(nnz: list[int], num_devices: int,
+                   order: list[int] | None = None) -> list[int]:
+    """Per-rank total nnz under the contiguous split of ``order``
+    (identity when None)."""
+    B = len(nnz)
+    n = max(1, int(num_devices))
+    lanes = list(range(B)) if order is None else list(order)
+    per_dev = max(1, B // n)
+    return [int(sum(nnz[i] for i in lanes[p * per_dev:(p + 1) * per_dev]))
+            for p in range(n)]
+
+
+def pod_imbalance(nnz: list[int], num_devices: int,
+                  order: list[int] | None = None) -> float:
+    """Max/mean per-rank nnz (1.0 = perfectly balanced)."""
+    loads = pod_device_nnz(nnz, num_devices, order)
+    mean = sum(loads) / len(loads)
+    return max(loads) / mean if mean > 0 else 1.0
+
+
+# ---------------------------------------------------------------------------
+# Per-rank shards (the distributed path)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceShards:
+    """Rectangular per-rank arrays of one mode (leading dim = kappa).
+
+    Rows are GLOBAL relabeled rows: every rank computes a partial (I_d, R)
+    output and a sum over the mesh combines them.  Scheme 1's partials
+    have disjoint row support, scheme 2's overlap.  Padding entries carry
+    value 0 on row ``I_d - 1``, so each shard's rows stay sorted.
+
+    ``idx_full`` / ``ew`` (valued shards, the masked method): each shard
+    entry's full coordinates and observation weight (0 on padding).
+    ``own_rows`` / ``gather_map`` (scheme 1 only): each rank's owned
+    relabeled rows padded to a common cap, and the original row each slot
+    lands on (padding -> the dummy row I_d) -- the all-gather collective
+    moves these slices instead of the whole partial."""
+
+    scheme: Scheme
+    mode: int
+    num_rows: int              # I_d
+    nnz_per_dev: int           # padded nnz per rank (static)
+    idx: np.ndarray            # (kappa, nnz_per_dev, W) int32
+    rows: np.ndarray           # (kappa, nnz_per_dev) int32 global relabeled
+    vals: np.ndarray           # (kappa, nnz_per_dev) f32 (0 on padding)
+    row_perm: np.ndarray       # (kappa, I_d) int32 (replicated copies)
+    input_modes: tuple[int, ...]
+    idx_full: np.ndarray | None = None   # (kappa, nnz_per_dev, N) int32
+    ew: np.ndarray | None = None         # (kappa, nnz_per_dev) f32
+    own_rows: np.ndarray | None = None   # (kappa, rows_cap) int32 relabeled
+    gather_map: np.ndarray | None = None  # (kappa, rows_cap) int32 original
+
+    @property
+    def rows_cap(self) -> int:
+        """Per-rank owned-row cap of the gather collective (0 when the
+        scheme does not support it)."""
+        return 0 if self.own_rows is None else int(self.own_rows.shape[1])
+
+
+def build_device_shards(layout, *, quantum: int = DEVICE_SHARD_QUANTUM,
+                        weights: np.ndarray | None = None,
+                        with_full_indices: bool = False) -> DeviceShards:
+    """Slice a mode layout into kappa rectangular rank shards.  The
+    per-rank nnz cap is the largest partition rounded up to ``quantum``.
+    ``weights`` (canonical COO order) and ``with_full_indices`` fill the
+    valued-shard fields of the masked method."""
+    kappa = layout.kappa
+    in_modes = layout.input_modes()
+    off = layout.part_offsets
+    max_nnz = int(np.diff(off).max()) if layout.nnz else 1
+    cap = max(-(-max(max_nnz, 1) // quantum) * quantum, quantum)
+    W = len(in_modes)
+    idx = np.zeros((kappa, cap, W), np.int32)
+    vals = np.zeros((kappa, cap), np.float32)
+    rows = np.full((kappa, cap), layout.num_rows - 1, np.int32)
+    idx_full = (np.zeros((kappa, cap, layout.nmodes), np.int32)
+                if with_full_indices else None)
+    ew = np.zeros((kappa, cap), np.float32) if weights is not None else None
+    w_lay = (np.asarray(weights, np.float32)[layout.perm]
+             if weights is not None else None)
+    for p in range(kappa):
+        s, e = int(off[p]), int(off[p + 1])
+        n = e - s
+        idx[p, :n] = layout.indices[s:e][:, in_modes]
+        vals[p, :n] = layout.values[s:e]
+        rows[p, :n] = layout.rows[s:e]
+        if idx_full is not None:
+            idx_full[p, :n] = layout.indices[s:e]
+        if ew is not None:
+            ew[p, :n] = w_lay[s:e]
+    row_perm = np.broadcast_to(
+        layout.row_perm, (kappa,) + layout.row_perm.shape).copy()
+    own_rows = gather_map = None
+    if layout.scheme == Scheme.INDEX_PARTITION:
+        # Scheme-1 partitions own disjoint contiguous relabeled ranges
+        # [row_lo, row_hi); padding slots repeat an owned row and point at
+        # the dummy destination I_d.
+        counts = (layout.row_hi - layout.row_lo).astype(np.int64)
+        rcap = max(int(counts.max()) if kappa else 1, 1)
+        own_rows = np.zeros((kappa, rcap), np.int32)
+        gather_map = np.full((kappa, rcap), layout.num_rows, np.int32)
+        for p in range(kappa):
+            lo, hi = int(layout.row_lo[p]), int(layout.row_hi[p])
+            n = hi - lo
+            own_rows[p, :n] = np.arange(lo, hi, dtype=np.int32)
+            own_rows[p, n:] = lo if n else 0
+            gather_map[p, :n] = layout.row_perm[lo:hi]
+    return DeviceShards(
+        scheme=layout.scheme, mode=layout.mode, num_rows=layout.num_rows,
+        nnz_per_dev=cap, idx=idx, rows=rows, vals=vals, row_perm=row_perm,
+        input_modes=tuple(in_modes), idx_full=idx_full, ew=ew,
+        own_rows=own_rows, gather_map=gather_map)
+
+
+def shard_fit_data(tensor, kappa: int, *,
+                   quantum: int = DEVICE_SHARD_QUANTUM,
+                   weights: np.ndarray | None = None):
+    """Split the canonical COO across ranks for the sparse fit:
+    ``(idx, vals, norm_sq)``, or with ``weights`` the weighted contract
+    ``(idx, vals, ew, norm_sq)`` whose ``norm_sq`` is ``sum_e w_e x_e^2``.
+    Padding is value 0 and weight 0; ``norm_sq`` is replicated per rank."""
+    nnz = tensor.nnz
+    per = max(-(-max(-(-nnz // kappa), 1) // quantum) * quantum, quantum)
+    idx = np.zeros((kappa, per, tensor.nmodes), np.int32)
+    vals = np.zeros((kappa, per), np.float32)
+    ew = np.zeros((kappa, per), np.float32) if weights is not None else None
+    flat_v = tensor.values.astype(np.float32)
+    flat_w = (np.asarray(weights, np.float32)
+              if weights is not None else None)
+    for p in range(kappa):
+        s = p * per
+        e = min(nnz, s + per)
+        if e > s:
+            idx[p, : e - s] = tensor.indices[s:e]
+            vals[p, : e - s] = flat_v[s:e]
+            if ew is not None:
+                ew[p, : e - s] = flat_w[s:e]
+    if ew is not None:
+        norm_sq = np.broadcast_to(
+            np.float32((flat_w * flat_v) @ flat_v), (kappa,)).copy()
+        return idx, vals, ew, norm_sq
+    norm_sq = np.broadcast_to(
+        np.float32(tensor.norm() ** 2), (kappa,)).copy()
+    return idx, vals, norm_sq

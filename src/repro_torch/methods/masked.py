@@ -23,7 +23,15 @@ Per-entry weights are the user's observation confidences
 by ``max(1, w.max())`` at every front door.  A weight-0 entry gives a
 residual of exactly +-0.0, which the MTTKRP and the fit add as nothing, so
 it is exactly an absent entry -- which is also what keeps the serving
-path's weight-0 nnz padding exact.  The fit is over observed entries:
+path's weight-0 nnz padding exact.
+
+Distributed (``core.distributed.cpd_als_distributed(method="masked")``):
+each rank's shard of a mode carries its entries' full coordinates, values
+and weights, so the residual is taken at the shard's own coordinates
+from the replicated factors (``shard_values``); the partial residual
+MTTKRPs are summed over the mesh, the dense correction is computed from
+the replicated factors on every rank (no collective), and the weighted
+fit sums each shard's residual mass.  The fit is over observed entries:
 ``1 - sqrt(sum w_e (x_e - model_e)^2) / sqrt(sum w_e x_e^2)``.
 """
 from __future__ import annotations
@@ -56,6 +64,14 @@ def mttkrp_values(ctx, factors, weights, fit_data):
     return ew * (values - cp_model_at_coords(indices, factors, weights))
 
 
+def shard_values(ctx, factors, weights, shard):
+    """The residual values at one rank's valued shard of a mode,
+    ``(idx, rows, row_perm, idx_full, vals, ew)``, in the shard's order
+    (padding has weight 0, so its residual is exactly +-0.0)."""
+    _, _, _, idx_full, vals, ew = shard
+    return mttkrp_values(ctx, factors, weights, (idx_full, vals, ew, None))
+
+
 def update(ctx, d, M_sp, factors, grams, weights, rescue):
     """Residual MTTKRP + closed-form dense term = the MTTKRP of the
     EM-filled tensor (``kernels.ref.mttkrp_masked_residual`` is the
@@ -75,6 +91,7 @@ MASKED = register_method(MethodSpec(
                 "padding is weight-0 and therefore exact.",
     update=update,
     mttkrp_values=mttkrp_values,
+    shard_values=shard_values,
     make_fit_data=make_fit_data,
     weighted_fit=True,
 ))

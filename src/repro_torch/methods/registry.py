@@ -12,6 +12,10 @@ caches and the batched service; a method owns only what differs:
     canonical-order values the mode's MTTKRP runs on through the valued
     kernel entry (None: the values baked into the packing).  Set, the
     method runs on structural mode data;
+  * ``shard_values(ctx, factors, weights, shard) -> (nnz_shard,)`` -- the
+    same values at a rank's valued shard of one mode (the distributed
+    engine; ``core.plan.DeviceShards`` with full indices), in the shard's
+    order.  None: the method's valued sweep does not distribute;
   * ``init_state_host(shape, rank, seed)`` -- seeded host init (None:
     the shared default);
   * ``make_fit_data(tensor, entry_weights, device)`` -- per-request fit
@@ -37,6 +41,7 @@ class MethodSpec:
     description: str = ""
     update: Callable | None = None
     mttkrp_values: Callable | None = None
+    shard_values: Callable | None = None
     init_state_host: Callable | None = None
     make_fit_data: Callable | None = None
     weighted_fit: bool = False

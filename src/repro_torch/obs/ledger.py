@@ -12,8 +12,9 @@ here:
   * ``core.als_device._build_mttkrp_block``       -- kind ``mttkrp_block``
   * ``serve.batched_engine._build_batched_block`` -- kind ``batched_block``
   * ``obs.calibrate._mode_mttkrp_fn``             -- kind ``calibrate_mode``
+  * ``core.als_device._build_sweep_block(axis=)`` -- kind ``dist_block``
 
-(the reference's pod and distributed kinds arrive with those paths).  A
+(the pod path builds ``batched_block`` windows for its per-rank lanes).  A
 novel key adds one build and a repeated key adds none; the numbers need
 not equal the reference's ``traces``, which also count re-specialization
 inside one key.  ``reset()`` re-baselines the counts, ``isolated()``

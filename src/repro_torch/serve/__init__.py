@@ -1,11 +1,13 @@
-"""Batched decomposition service, single device (port of ``repro.serve``).
+"""Batched decomposition service (port of ``repro.serve``).
 
   buckets        -- (shape, nnz cap, method) classes and the padding
                     helpers, bitwise the reference's.
   batched_engine -- B bucket-mates decomposed in lockstep: one launch of
                     the batched MTTKRP kernel per mode and sweep, per-lane
                     freeze masks and convergence, one host read per window;
-                    a prepare/execute seam with uploads on a copy stream.
+                    a prepare/execute seam with uploads on a copy stream;
+                    the pod path over a batch mesh (``mesh=``, one host
+                    read per batch).
   scheduler      -- per-bucket queues, futures, score-based flushes
                     (max-batch, max-wait, aging, forced), row-density
                     feedback into the bucket plan, double-buffered
@@ -14,8 +16,9 @@
                     occupancy, cache hit rates, dispatch overlap,
                     streaming-session gauges, SLO health.
 
-``runtime.ALSRunner`` fronts this service.  The reference's pod path
-(``mesh=``) is not ported.
+``runtime.ALSRunner`` fronts this service.  ``DecompositionService(mesh=)``
+takes a mesh of one rank; across ranks it needs a controller that
+broadcasts its flushes (not ported yet).
 """
 from .batched_engine import BatchedEngine, batched_cache_stats
 from .buckets import Bucket, BucketPolicy, pad_tensor, pad_weights, repeat_pad

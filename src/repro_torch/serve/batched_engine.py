@@ -1,5 +1,5 @@
-"""Batched ALS engine on one device (port of ``repro.serve.batched_engine``,
-``mesh=None``).
+"""Batched ALS engine (port of ``repro.serve.batched_engine``): one
+device, or the pod path over a batch mesh (``mesh=``).
 
 One small tensor cannot fill the card, so the service decomposes B
 bucket-mates (same shape, one nnz cap, one method; see ``serve.buckets``)
@@ -37,6 +37,26 @@ plan (``core.plan.plan_bucket``).
 Each lane computes exactly what the one-lane sweep computes on its data,
 so a request's result does not depend on B or on its bucket-mates, and on
 the slab backend equals the fused engine's under the bucket's plan.
+
+The pod path (``mesh=``, a ``launch.mesh.Mesh`` over the batch axis).
+The batch is sized by ``core.plan.PodPlan.dispatch_batch`` (the batch
+quantum, then a mesh multiple; the padding lanes repeat the last request)
+and placed by ``core.plan.pod_lane_order`` (``lane_placement``).  Every
+rank runs ``decompose_batch`` on the same requests, stacks and uploads
+only its contiguous block of lanes, and runs the same batched window on
+them (one ``mttkrp_slab_batched`` launch per mode and sweep on the slab
+backend: the reference's ``shard_map`` over the vmapped window).  The
+reference decides convergence on the device inside a ``while_loop``;
+here the rank runs all ``ceil(max_iters / check_every)`` windows with no
+host read -- a frozen lane's sweep is an exact no-op -- and keeps on the
+device the batch's solve flag and the number of windows in which some
+lane was active (the reference's ``windows_run``).  Then it all-gathers
+every lane's factors, weights, iterations, fits, flag and count, and
+reads them in ONE transfer: ``host_syncs == 1``.  If a solve failed
+anywhere, every rank reruns the decomposition with the pinv rescue
+(``host_syncs == 2``); the rescue changes only failed solves.  Windows
+run after every lane converged cost device time; the ``pod.window`` event
+records them.
 
 Packing.  On the slab backend every bucket-mate is packed to the bucket
 plan's static slab cap (``core.plan.plan_bucket``), so the slab arrays
@@ -158,37 +178,62 @@ def batched_cache_stats():
 
 
 class BatchedEngine:
-    """Decomposes same-bucket tensors in lockstep on one device.
+    """Decomposes same-bucket tensors in lockstep.
 
     ``backend``: 'slab' (the batched kernel), 'segment' or 'coo'.
     ``batch_quantum``: a batch is filled up to a multiple of it by
     repeating its last request (``repeat_pad``; the repeated lanes are
     discarded), so streams of varying batch size reuse fewer window
-    functions.  ``device`` defaults to the card and raises without it."""
+    functions.  ``device`` defaults to the card and raises without it.
+    ``mesh`` (a 1-D ``launch.mesh.Mesh``) runs the pod path on every rank
+    of the mesh, on the mesh's device; ``lane_placement`` ('balanced' or
+    'contiguous') decides which rank runs which request."""
 
     def __init__(self, rank: int, *, kappa: int = 1, backend: str = "slab",
                  check_every: int = 4, solver: str = "auto",
-                 batch_quantum: int = 1, device="cuda"):
+                 batch_quantum: int = 1, device="cuda", mesh=None,
+                 lane_placement: str = "balanced"):
         if backend not in _BATCH_BACKENDS:
             raise ValueError(
                 f"batched engine supports {_BATCH_BACKENDS}, got {backend!r}")
+        if lane_placement not in ("balanced", "contiguous"):
+            raise ValueError(
+                f"lane_placement must be 'balanced' or 'contiguous', got "
+                f"{lane_placement!r}")
+        if mesh is not None and len(mesh.axis_names) != 1:
+            raise ValueError(
+                f"pod mesh must be 1-D (the batch axis), got axes "
+                f"{mesh.axis_names}")
         self.rank = int(rank)
         self.kappa = int(kappa)
         self.backend = backend
         self.check_every = max(1, int(check_every))
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.solver = als_device.resolve_solver(solver, self.device)
         self.batch_quantum = max(1, int(batch_quantum))
-        # Single device: the scheduler reads these where the reference's
-        # pod path would name its mesh.
-        self.mesh = None
-        self.num_devices = 1
+        self.lane_placement = lane_placement
         # On the card: batches are built on the host, uploaded on the copy
         # stream and run on the compute stream (see the module docstring).
         cuda = self.device.type == "cuda"
         self._host = torch.device("cpu") if cuda else self.device
         self.stream = torch.cuda.Stream(self.device) if cuda else None
         self._copy_stream = torch.cuda.Stream(self.device) if cuda else None
+
+    @property
+    def num_devices(self) -> int:
+        """Ranks of the pod's mesh (1 without one)."""
+        return 1 if self.mesh is None else int(self.mesh.size)
+
+    def pod_plan(self, shape: tuple[int, ...], nnz_cap: int,
+                 density: tuple | None = None) -> plan_mod.PodPlan:
+        """The pod sizing plan of a bucket class (mesh path only)."""
+        if self.mesh is None:
+            raise ValueError("engine has no mesh; pod_plan is undefined")
+        return plan_mod.plan_pod(
+            shape, nnz_cap, self.rank, self.kappa,
+            num_devices=self.num_devices, batch_quantum=self.batch_quantum,
+            density=density, smem_limit=shared_memory_per_block(self.device))
 
     # -- data staging -------------------------------------------------------
 
@@ -344,7 +389,10 @@ class BatchedEngine:
                                          (requested,)))
         tol_b = list(np.broadcast_to(np.asarray(tol, np.float32),
                                      (requested,)))
-        B = -(-requested // self.batch_quantum) * self.batch_quantum
+        if self.mesh is None:
+            B = -(-requested // self.batch_quantum) * self.batch_quantum
+        else:
+            B, _ = self.pod_plan(shape, cap, density).dispatch_batch(requested)
         if B > requested:
             tensors, seeds = repeat_pad(tensors, B), repeat_pad(seeds, B)
             n_iters_b, tol_b = repeat_pad(n_iters_b, B), repeat_pad(tol_b, B)
@@ -352,10 +400,35 @@ class BatchedEngine:
                 init_states = repeat_pad(init_states, B)
             if weights is not None:
                 weights = repeat_pad(weights, B)
+        lane_of, lanes = None, range(B)
+        if self.mesh is not None:
+            # Load-aware placement: rank p runs the contiguous block of
+            # lanes p*per_dev .. (p+1)*per_dev; deal the heavy requests
+            # across ranks.  Results are put back in request order.
+            if self.lane_placement == "balanced":
+                order = plan_mod.pod_lane_order([int(t.nnz) for t in tensors],
+                                                self.num_devices)
+                if order != list(range(B)):
+                    tensors = [tensors[i] for i in order]
+                    seeds = [seeds[i] for i in order]
+                    n_iters_b = [n_iters_b[i] for i in order]
+                    tol_b = [tol_b[i] for i in order]
+                    if init_states is not None:
+                        init_states = [init_states[i] for i in order]
+                    if weights is not None:
+                        weights = [weights[i] for i in order]
+                    lane_of = [0] * B
+                    for lane, i in enumerate(order):
+                        lane_of[i] = lane
+            per_dev = B // self.num_devices
+            lanes = range(self.mesh.rank * per_dev,
+                          (self.mesh.rank + 1) * per_dev)
 
         host = self._host
         mode_data_all, fit_data, slab_meta = self._stack_batch(
-            tensors, cap, spec, weights, density, host)
+            [tensors[i] for i in lanes], cap, spec,
+            None if weights is None else [weights[i] for i in lanes],
+            density, host)
         init_fn = (spec.init_state_host if spec is not None
                    and spec.init_state_host is not None
                    else als_device.init_state_host)
@@ -365,19 +438,23 @@ class BatchedEngine:
                   and init_states[i] is not None
                   else init_fn(shape, self.rank, int(seeds[i]))),
                 device=host)
-            for i in range(B)]
+            for i in lanes]
+        L = len(lanes)
         carry = (states,
-                 torch.ones((B,), dtype=torch.bool, device=host),
-                 torch.full((B,), -torch.inf, dtype=torch.float32, device=host),
-                 torch.zeros((B,), dtype=torch.int32, device=host))
+                 torch.ones((L,), dtype=torch.bool, device=host),
+                 torch.full((L,), -torch.inf, dtype=torch.float32, device=host),
+                 torch.zeros((L,), dtype=torch.int32, device=host))
         prep = _PreparedBatch(
             requested=requested, batch=B, shape=shape, cap=cap, method=method,
             carry=carry, mode_data_all=mode_data_all, fit_data=fit_data,
-            tol_dev=torch.as_tensor(np.asarray(tol_b, np.float32), device=host),
-            max_iters_dev=torch.as_tensor(np.asarray(n_iters_b, np.int32),
-                                          device=host),
+            tol_dev=torch.as_tensor(np.asarray([tol_b[i] for i in lanes],
+                                               np.float32), device=host),
+            max_iters_dev=torch.as_tensor(
+                np.asarray([n_iters_b[i] for i in lanes], np.int32),
+                device=host),
             max_iters=int(max(n_iters_b)), slab_meta=slab_meta,
-            t_start=t_start)
+            t_start=t_start, lane_nnz=[int(t.nnz) for t in tensors],
+            lane_of=lane_of)
         return self._upload(prep)
 
     def _upload(self, prep: "_PreparedBatch") -> "_PreparedBatch":
@@ -406,11 +483,12 @@ class BatchedEngine:
         batch's uploads."""
         if prep is None:
             return []
+        run = self._execute_loop if self.mesh is None else self._execute_pod
         if self.stream is None:
-            return self._execute_loop(prep)
+            return run(prep)
         with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
             self.stream.wait_event(prep.ready)
-            return self._execute_loop(prep)
+            return run(prep)
 
     def decompose_batch(
         self,
@@ -479,41 +557,120 @@ class BatchedEngine:
             if not any(flags[:B]):
                 break
 
-        host_syncs += 1              # final materialization
+        host_syncs += 1              # final materialization, one transfer
         fits = (torch.cat(fits_dev) if fits_dev else
                 torch.zeros((0, B), dtype=torch.float32, device=self.device))
-        return self._materialize(prep, carry, fits, host_syncs)
+        flat = self._flat_lanes(carry, fits).cpu().numpy()[None]
+        return self._results(prep, flat, int(fits.shape[0]), host_syncs,
+                             "batched")
 
-    def _materialize(self, prep: "_PreparedBatch", carry, fits,
-                     host_syncs: int) -> list[CPDResult]:
-        """Everything the results need in ONE device-to-host transfer;
-        repeated batch-quantum lanes are dropped here."""
+    def _pod_windows(self, prep: "_PreparedBatch", max_windows: int,
+                     rescue: bool):
+        """All ``max_windows`` full windows on this rank's lanes, queued
+        with no host read: ``(carry, fits (max_windows*block, L), ok,
+        active windows)``, the last two 0-d tensors on the device."""
+        fn = _build_batched_block(
+            self.backend, len(prep.shape), self.rank, prep.shape, prep.cap,
+            int(prep.carry[1].shape[0]), self.solver, self.check_every,
+            prep.slab_meta, prep.method)
+        carry, fits, oks = prep.carry, [], []
+        active = torch.zeros((), dtype=torch.float32, device=self.device)
+        for _ in range(max_windows):
+            active = active + carry[1].any().to(torch.float32)
+            carry, fits_blk, ok = fn(carry, prep.mode_data_all, prep.fit_data,
+                                     prep.tol_dev, prep.max_iters_dev,
+                                     rescue=rescue)
+            fits.append(fits_blk)
+            if ok is not None:
+                oks.append(ok)
+        ok = (torch.stack(oks).all() if oks
+              else torch.ones((), dtype=torch.bool, device=self.device))
+        return carry, torch.cat(fits), ok, active
+
+    @staticmethod
+    def _flat_lanes(carry, fits, *scalars) -> torch.Tensor:
+        """This rank's lanes in one float32 vector: every lane's factors,
+        then every lane's weights, the iterations, the fits (sweeps x
+        lanes), then ``scalars`` (0-d tensors)."""
         states, _, _, done = carry
-        N = len(prep.shape)
-        parts = [F.reshape(-1) for st in states[:prep.requested] for F in st[0]]
-        parts += [st[2] for st in states[:prep.requested]]
+        parts = [F.reshape(-1) for st in states for F in st[0]]
+        parts += [st[2] for st in states]
         parts += [done.to(torch.float32), fits.reshape(-1)]
-        flat = torch.cat(parts).cpu().numpy()
-        wall = obs_clock.now() - prep.t_start
+        parts += [x.to(torch.float32).reshape(1) for x in scalars]
+        return torch.cat(parts)
 
-        sizes = [p.numel() for p in parts]
-        chunks = np.split(flat, np.cumsum(sizes)[:-1])
-        R, B = self.rank, prep.batch
-        done_h = chunks[-2].astype(np.int64)
-        fits_h = chunks[-1].reshape(-1, B)
+    def _execute_pod(self, prep: "_PreparedBatch") -> list[CPDResult]:
+        """The pod path: all windows queued, one gathered host read (two
+        when a solve failed and the rescue reran); see the module
+        docstring."""
+        B, n_dev = prep.batch, self.num_devices
+        per_dev = B // n_dev
+        max_windows = -(-prep.max_iters // self.check_every)
+        dev_nnz = plan_mod.pod_device_nnz(prep.lane_nnz, n_dev)
+        placement = {"lane_placement": "contiguous"}
+        if prep.lane_of is not None:
+            arrival = [prep.lane_nnz[prep.lane_of[i]] for i in range(B)]
+            placement = {
+                "lane_placement": "balanced",
+                "device_nnz_contiguous": plan_mod.pod_device_nnz(arrival, n_dev),
+                "imbalance": plan_mod.pod_imbalance(prep.lane_nnz, n_dev),
+                "imbalance_contiguous": plan_mod.pod_imbalance(arrival, n_dev),
+            }
+        with obs_trace.span("pod.dispatch", cat="serve", backend=self.backend,
+                            B=B, devices=n_dev, B_per_device=per_dev,
+                            max_windows=max_windows,
+                            sweeps_per_window=self.check_every,
+                            nnz_cap=prep.cap, device_nnz=dev_nnz,
+                            method=prep.method, **placement):
+            # Every lane, each rank's solve flag and active-window count,
+            # gathered to every rank and read in one transfer.
+            host_syncs, rescued = 1, False
+            flat = self.mesh.all_gather(self._flat_lanes(
+                *self._pod_windows(prep, max_windows, rescue=False))
+            ).cpu().numpy()
+            if not flat[:, -2].all():
+                rescued, host_syncs = True, 2
+                flat = self.mesh.all_gather(self._flat_lanes(
+                    *self._pod_windows(prep, max_windows, rescue=True))
+                ).cpu().numpy()
+        windows = int(flat[:, -1].max())
+        obs_trace.event("pod.window", cat="serve", windows=windows,
+                        devices=n_dev, B_per_device=per_dev,
+                        sweeps_per_window=self.check_every,
+                        windows_queued=max_windows,
+                        windows_after_convergence=max_windows - windows,
+                        rescued=rescued)
+        return self._results(prep, flat, max_windows * self.check_every,
+                             host_syncs, "pod")
+
+    def _results(self, prep, flat, sweeps: int, host_syncs: int,
+                 engine: str) -> list[CPDResult]:
+        """Results in request order from ``flat``, one ``_flat_lanes``
+        vector per rank (``(ranks, length)``, read on the host; trailing
+        scalars ignored); repeated padding lanes are dropped."""
+        N, R = len(prep.shape), self.rank
+        per_dev = prep.batch // self.num_devices
+        sizes = [I * R for _ in range(per_dev) for I in prep.shape]
+        sizes += [R] * per_dev + [per_dev, sweeps * per_dev]
+        offs = np.concatenate([[0], np.cumsum(sizes)])
+        wall = obs_clock.now() - prep.t_start
         results = []
         for i in range(prep.requested):
-            ni = int(done_h[i])
+            lane = prep.lane_of[i] if prep.lane_of is not None else i
+            r, b = divmod(lane, per_dev)
+            part = [flat[r, offs[k]:offs[k + 1]] for k in range(len(sizes))]
+            ni = int(part[N * per_dev + per_dev][b])
+            fits = part[N * per_dev + per_dev + 1].reshape(sweeps, per_dev)[:, b]
             results.append(CPDResult(
-                factors=[chunks[i * N + d].reshape(prep.shape[d], R).copy()
+                factors=[part[b * N + d].reshape(prep.shape[d], R).copy()
                          for d in range(N)],
-                weights=chunks[prep.requested * N + i].astype(np.float64),
-                fits=[float(f) for f in fits_h[:ni, i]],
+                weights=part[N * per_dev + b].astype(np.float64),
+                fits=[float(f) for f in fits[:ni]],
                 iters=ni,
                 mttkrp_seconds=0.0,
                 total_seconds=wall,
                 host_syncs=host_syncs,
-                engine="batched",
+                engine=engine,
                 method=prep.method,
             ))
         return results
@@ -538,4 +695,9 @@ class _PreparedBatch:
     max_iters: int
     slab_meta: tuple | None
     t_start: float
+    # The pod path: every lane's nnz in placed order, and where request i
+    # went (lane_of[i]; None in arrival order).  carry, mode and fit data
+    # then hold this rank's block of lanes only.
+    lane_nnz: list | None = None
+    lane_of: list | None = None
     ready: object = None      # CUDA event after the uploads (card only)

@@ -460,7 +460,9 @@ class BatchScheduler:
                  for p in batch])))
             for d in range(len(shape))
         )
-        device_ids = [int(self.engine.device.index or 0)]
+        mesh = self.engine.mesh
+        device_ids = (mesh.ranks if mesh is not None
+                      else [int(self.engine.device.index or 0)])
         with self._lock:
             self.metrics.record_density(bucket.key, profiles)
             self.metrics.record_batch(
@@ -485,7 +487,13 @@ class BatchScheduler:
 
 class DecompositionService:
     """Convenience facade: engine + scheduler + metrics in one object.
-    ``device`` defaults to the card and raises without it.
+    ``device`` defaults to the card and raises without it.  ``mesh`` (a
+    batch mesh of ONE rank) runs every flush through the engine's pod
+    path.  A mesh of more ranks raises ``NotImplementedError``: the flush
+    triggers read each controller's wall clock, so κ controllers would cut
+    different batches and wait forever in the first collective; a
+    controller rank that broadcasts its flushes is ``ROADMAP.md`` Queue A
+    item 11's open part.
 
     >>> svc = DecompositionService(rank=16, max_batch=8)
     >>> futs = [svc.submit(t) for t in tensors]
@@ -499,11 +507,17 @@ class DecompositionService:
                  max_wait_s: float = 0.005, batch_quantum: int = 1,
                  double_buffer: bool = False, slo=None,
                  clock: Callable[[], float] = obs_clock.now,
-                 device="cuda"):
+                 device="cuda", mesh=None):
+        if mesh is not None and mesh.size > 1:
+            raise NotImplementedError(
+                f"DecompositionService over a mesh of {mesh.size} ranks needs "
+                f"a controller rank that broadcasts its flushes (ROADMAP.md "
+                f"Queue A item 11); run BatchedEngine(mesh=...) on every rank "
+                f"instead")
         self.engine = BatchedEngine(rank, kappa=kappa, backend=backend,
                                     check_every=check_every,
                                     batch_quantum=batch_quantum,
-                                    device=device)
+                                    device=device, mesh=mesh)
         # slo: an obs.health.SLOPolicy; snapshot() then carries a live
         # "health" section and breach onsets emit health.breach events.
         self.metrics = ServiceMetrics(slo=slo)

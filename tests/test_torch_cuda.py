@@ -388,3 +388,61 @@ def test_checkpoint_saves_on_card_and_restores_onto_card(cuda, tmp_path):
     delta = SparseTensor(t.indices[1500:], t.values[1500:], t.shape)
     r1, r2 = s1.update(delta), s2.update(delta)
     assert abs(r1.fits[-1] - r2.fits[-1]) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_slab_branch_with_a_mesh_on_card(cuda):
+    """B1e on a mesh of one rank: this rank's packed shard through the
+    kernel, the (identity) sum, the unrelabel: within 1e-5 of the
+    single-device slab MTTKRP, and one window of the distributed slab
+    sweep launches the kernel once per mode and sweep."""
+    from repro_torch.core import als_device
+    from repro_torch.core.distributed import (_collect_dist_data,
+                                              make_distributed_plan,
+                                              shard_slab_mode_data)
+    from repro_torch.core.mttkrp import mttkrp
+    from repro_torch.launch import make_mesh
+
+    t = random_sparse((300, 24, 7), 20_000, seed=4, distribution="powerlaw")
+    mesh = make_mesh((1,), ("sm",), device=cuda)
+    plan = make_distributed_plan(t, mesh)
+    md, meta = shard_slab_mode_data(plan, 8)
+    F = _factors(t.shape, 8, 12, cuda)
+    ctx = als_device.make_sweep_context("slab", 3, 8, t.shape, meta, "cho",
+                                        axis=mesh)
+    single = make_plan(t, 1, device=cuda)
+    for d in range(3):
+        got = ctx.one_mttkrp(d, md[d], [F], None)[0]
+        ref = mttkrp(single, F, d, backend="slab")
+        assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().sum())
+    window = als_device._build_sweep_block("slab", 3, 8, t.shape, meta, "cho",
+                                           2, "cp", mesh)
+    _, fit_data = _collect_dist_data(plan)
+    before = ks.LAUNCHES["mttkrp_slab"]
+    _, fits, ok = window(als_device.init_state(t.shape, 8, 0, device=cuda),
+                         md, fit_data)
+    assert ks.LAUNCHES["mttkrp_slab"] - before == 2 * 3
+    assert bool(ok) and bool(torch.isfinite(fits).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["cp", "masked"])
+def test_pod_of_one_rank_equals_batched_on_card(cuda, method):
+    from repro_torch.launch import make_batch_mesh
+
+    ts = [random_sparse((40, 30, 20), 3000 - 50 * i, seed=i,
+                        distribution="powerlaw") for i in range(3)]
+    kw = dict(n_iters=4, tol=-1.0, seeds=[1, 2, 3], nnz_cap=3000, method=method)
+    if method == "masked":
+        kw["weights"] = [np.random.default_rng(i).uniform(0.2, 1.0, t.nnz)
+                         .astype(np.float32) for i, t in enumerate(ts)]
+    ref = BatchedEngine(6, check_every=2, device=cuda).decompose_batch(ts, **kw)
+    before = ks.LAUNCHES["mttkrp_slab_batched"]
+    pod = BatchedEngine(6, check_every=2, mesh=make_batch_mesh(1, device=cuda),
+                        batch_quantum=2).decompose_batch(ts, **kw)
+    assert ks.LAUNCHES["mttkrp_slab_batched"] - before == 4 * 3
+    for a, b in zip(pod, ref):
+        assert a.engine == "pod" and a.host_syncs == 1
+        assert a.fits == b.fits
+        for Fa, Fb in zip(a.factors, b.factors):
+            assert np.array_equal(Fa, Fb)

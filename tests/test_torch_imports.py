@@ -32,7 +32,9 @@ def test_import_leaves_jax_out():
             "repro_torch.methods, repro_torch.serve, repro_torch.obs, "
             "repro_torch.checkpoint, repro_torch.runtime, repro_torch.data, "
             "repro_torch.obs.calibrate, repro_torch.obs.history, "
-            "repro_torch.obs.regress, repro_torch.obs.report; "
+            "repro_torch.obs.regress, repro_torch.obs.report, "
+            "repro_torch.launch, repro_torch.launch.mesh, "
+            "repro_torch.core.distributed; "
             f"bad = sorted(m for m in sys.modules "
             f"if m.split('.')[0] in {FORBIDDEN!r}); "
             "print(bad); sys.exit(1 if bad else 0)")
