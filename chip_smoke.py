@@ -41,6 +41,21 @@ one PyTorch library call.  Last comes
                request; ``calibrate_tensor`` and the Hopper tile model
                fitted to timed tilings; no builds on a repeated shape.
 
+Then
+
+  embed     -- the CPD-factorized embedding of qwen1.5-4b at full width
+               (vocab 151,936 padded to 152,064 = 390 x 390, d_model
+               2560, CP rank 256) on 8 x 4096 Zipf-drawn tokens: the
+               gradient of A and B as the slab kernel on modes 0 and 1 of
+               the batch tensor (B1f), against its plain version, against
+               autograd and through three AdamW steps; the lookup against
+               the dense table;
+  dist, pod -- the distributed engine and the batched engine's pod path
+               at kappa = 1 (NCCL) and kappa = 2 (gloo, two ranks on the
+               one card), the pod's requests also through
+               ``DecompositionService(mesh=)``, a zero iteration budget,
+               and at kappa = 2 the optimizer's ``cross_pod_mean``.
+
 Prints one JSON line per phase, then the
 ``{"kernels": ...}`` line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the script
@@ -84,6 +99,18 @@ SERVICE_CAP = 962_965         # the 16 requests' bucket under growth 1.25
 DIST_SWEEPS, DIST_CHECK = 10, 5
 POD_REQUESTS, POD_QUANTUM = 6, 4
 RANK_TIMEOUT_S = 600
+# The pod phase also serves its requests through DecompositionService(mesh=)
+# for these methods, and runs a zero iteration budget on 2 small requests.
+SERVICE_METHODS = ("cp", "masked")
+ZERO_BUDGET_NNZ = 4_096
+# The embed phase: the CPD-factorized embedding of qwen1.5-4b at full
+# width (vocab 151,936, padded to a multiple of 256; d_model 2560), CP
+# rank 256, on one batch of 8 x 4096 tokens drawn from a Zipf law.
+EMBED_VOCAB, EMBED_D, EMBED_RANK = 151_936, 2560, 256
+EMBED_BATCH = (8, 4096)
+EMBED_ZIPF = 1.1
+EMBED_KAPPA = 8               # grad_factors_mttkrp's default partitions
+EMBED_ADAMW_STEPS = 3
 
 
 def emit(obj) -> None:
@@ -127,6 +154,15 @@ def low_rank_full(shape, rank, seed):
     dense = np.einsum("ir,jr,kr->ijk", *F)
     idx = np.indices(shape).reshape(len(shape), -1).T.astype(np.int32)
     return SparseTensor(idx, dense.reshape(-1).astype(np.float32), shape)
+
+
+@functools.lru_cache(maxsize=None)
+def uber_full():
+    """The full uber stand-in, generated once for the stream and plan
+    phases (neither changes it)."""
+    from repro_torch.core.coo import frostt_like
+
+    return frostt_like("uber", scale=1.0)
 
 
 def reset_launches(ks) -> None:
@@ -176,7 +212,8 @@ def library_mttkrp(torch, np, indices, shape, d, values, in_f):
     return (lambda: torch.sparse.mm(csr, krp)), krp.numel() * 4
 
 
-def slab_bound(slots, W, chunk_ints, factor_rows, out_rows, value_bytes=None):
+def slab_bound(slots, W, chunk_ints, factor_rows, out_rows, value_bytes=None,
+               rank=RANK):
     """The least time of one slab MTTKRP: bytes (each input read once, each
     output written once) over the card's memory rate, or its float32
     operations over the float32 rate, whichever is larger.  The inputs are
@@ -185,8 +222,8 @@ def slab_bound(slots, W, chunk_ints, factor_rows, out_rows, value_bytes=None):
     if value_bytes is None:
         value_bytes = slots * 4
     nbytes = (slots * (W + 1) * 4 + value_bytes + chunk_ints * 4
-              + factor_rows * RANK * 4 + out_rows * RANK * 4)
-    ops = slots * RANK * (W + 1)
+              + factor_rows * rank * 4 + out_rows * rank * 4)
+    ops = slots * rank * (W + 1)
     bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ops = ops / F32_OPS_PER_S * 1e3
     return {"bound_ms": max(bound_bytes, bound_ops),
@@ -366,11 +403,11 @@ def stream_phase(torch, np, clock, ks, trace):
 
     from repro_torch.convert import stream_state_from_reference
     from repro_torch.core.als_device import cpd_als_fused, sweep_cache_stats
-    from repro_torch.core.coo import SparseTensor, frostt_like
+    from repro_torch.core.coo import SparseTensor
     from repro_torch.methods import StreamingCP
 
     t0 = clock.now()
-    full = frostt_like("uber", scale=1.0)
+    full = uber_full()
     shape = tuple(full.shape)
     rng = np.random.default_rng(17)
     order = rng.permutation(full.nnz)
@@ -690,7 +727,7 @@ def plan_phase(torch, np, clock, ks, dev, chicago, lane0):
     import math
 
     from repro_torch.core.als_device import sweep_trace_stats
-    from repro_torch.core.coo import SparseTensor, frostt_like
+    from repro_torch.core.coo import SparseTensor
     from repro_torch.core.cpd import cpd_als
     from repro_torch.core.layout import build_mode_layout, format_memory_report
     from repro_torch.core.load_balance import (DeviceProfile, Scheme, choose_scheme,
@@ -706,7 +743,7 @@ def plan_phase(torch, np, clock, ks, dev, chicago, lane0):
     default = DeviceProfile()
     bw = measured_profile_bw(torch, dev)
     t0 = clock.now()
-    uber = frostt_like("uber", scale=1.0)
+    uber = uber_full()
     gen_s = clock.now() - t0
     rng = np.random.default_rng(29)
     S1, S2 = Scheme.INDEX_PARTITION, Scheme.NNZ_PARTITION
@@ -840,7 +877,7 @@ def plan_phase(torch, np, clock, ks, dev, chicago, lane0):
     with trace.capture() as tr:
         cal_rows = calibrate.calibrate_tensor(
             "chicago", chicago, rank=RANK, backends=("slab",), reps=3,
-            imbalance_reps=2, device=dev)
+            imbalance_reps=1, device=dev)
     calibrate_s = clock.now() - t0
     ratio_row = cal_rows[0]
     check(all(math.isfinite(m["measured_s"]) and m["measured_s"] > 0
@@ -916,6 +953,162 @@ def plan_phase(torch, np, clock, ks, dev, chicago, lane0):
                 "tensors": tiles, "seconds": tiles_s},
             "launches": launches, "compare_launches": compare_launches,
             "phase_s": clock.now() - t_phase}
+
+
+def zipf_tokens(np, vocab: int, shape, exponent: float, seed: int):
+    """Token ids from a Zipf law over the vocabulary: id k has probability
+    proportional to (k + 1)^-exponent, so low ids are the frequent ones,
+    as a BPE vocabulary numbers its merges by frequency."""
+    p = np.arange(1, vocab + 1, dtype=np.float64) ** -exponent
+    rng = np.random.default_rng(seed)
+    return rng.choice(vocab, size=shape, p=p / p.sum()).astype(np.int32)
+
+
+def rel_err(a, b) -> float:
+    """Largest entry of |a - b| over the largest entry of |b|."""
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def embed_phase(torch, np, clock, ks, dev):
+    """The CPD-factorized embedding of qwen1.5-4b at full width: one token
+    batch's gradient of A and B through B1f (``grad_factors_mttkrp``, the
+    slab kernel on modes 0 and 1 of the batch tensor), counted from 0,
+    then the lookup against the dense table, B1f against its plain
+    version and against autograd, its times, and AdamW steps on B1f's
+    gradients against the same steps on autograd's."""
+    from repro_torch import optim
+    from repro_torch.core.mttkrp import make_plan, mttkrp
+    from repro_torch.models import factorized_embed as fe
+    from repro_torch.models.common import build_params, pad_vocab
+
+    V = pad_vocab(EMBED_VOCAB)
+    t0 = clock.now()
+    p = build_params(fe.cpd_embed_specs(V, EMBED_D, EMBED_RANK),
+                     torch.Generator(device=dev).manual_seed(0), torch.float32, device=dev)
+    toks = torch.as_tensor(zipf_tokens(np, EMBED_VOCAB, EMBED_BATCH, EMBED_ZIPF, seed=0),
+                           device=dev)
+    dY = torch.randn((*EMBED_BATCH, EMBED_D), device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(1))
+    torch.cuda.synchronize()
+    gen_s = clock.now() - t0
+
+    # The user path, its launches counted from 0.
+    reset_launches(ks)
+    dA, dB = fe.grad_factors_mttkrp(p, toks, dY, V)
+    torch.cuda.synchronize()
+    launches = dict(ks.LAUNCHES)
+    check(launches["mttkrp_slab"] == 2
+          and launches["mttkrp_slab_valued"] == launches["mttkrp_slab_batched"] == 0,
+          f"embed: the gradient launched {launches}, not 2 mttkrp_slab")
+    check(bool(torch.isfinite(dA).all() and torch.isfinite(dB).all()),
+          "embed: non-finite gradient")
+
+    look = fe.cpd_embed_lookup(p, toks, V)
+    table = fe.dense_table(p, V)
+    table_bytes = table.numel() * table.element_size()
+    lookup_err = rel_err(look, table[toks.long()])
+    check(lookup_err <= 1e-5, f"embed: lookup differs from the dense table by {lookup_err}")
+    del table, look
+
+    # The same problem planned apart, to time its host half and hold the
+    # kernel against its plain version and against autograd.
+    t0 = clock.now()
+    tensor = fe.batch_as_sparse_tensor(toks, V)
+    batch_ms = (clock.now() - t0) * 1e3
+    t0 = clock.now()
+    plan = make_plan(tensor, EMBED_KAPPA, device=dev)
+    make_plan_ms = (clock.now() - t0) * 1e3
+    t0 = clock.now()
+    for d in (0, 1):
+        plan.device_packed(d)
+    torch.cuda.synchronize()
+    pack_ms = (clock.now() - t0) * 1e3
+    factors = [p["A"], p["B"], dY.reshape(-1, EMBED_D) @ p["C"]]
+    leaves = {k: v.detach().clone().requires_grad_(True) for k, v in p.items()}
+    look = fe.cpd_embed_lookup(leaves, toks, V)
+    auto = torch.autograd.grad(look, (leaves["A"], leaves["B"]), dY, retain_graph=True)
+    library_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+        look, (leaves["A"], leaves["B"]), dY, retain_graph=True), 5)
+    modes = []
+    for d, got in ((0, dA), (1, dB)):
+        pk = plan.packed(d)
+        rb = plan.mode_plan(d, EMBED_RANK).rank_block
+        others = plan.layouts[d].input_modes()
+        in_f = [factors[w] for w in others]
+        idxp, valsp, lrowsp, rb_of, chunks, _ = plan.device_packed(d)
+        kw = dict(num_row_blocks=pk.num_row_blocks, block_rows=pk.block_rows, tile=pk.tile)
+        err, tol = kernel_vs_plain_err(torch, ks, plan.device_packed(d), in_f,
+                                       (pk.num_row_blocks, pk.block_rows, pk.tile, rb),
+                                       f"embed mode {d}")
+        check(err <= tol, f"embed mode {d}: kernel vs plain {err} > {tol}")
+        same = bool(torch.equal(mttkrp(plan, factors, d), got))
+        check(same, f"embed mode {d}: the gradient differs from the kernel on its plan")
+        scale = abs_mttkrp_max(ks, plan, factors, d)
+        auto_err = float((got - auto[d]).abs().max())
+        check(auto_err <= 1e-4 * scale, f"embed mode {d}: B1f vs autograd {auto_err} > "
+                                        f"{1e-4 * scale}")
+        baked = functools.partial(ks.mttkrp_slab, idxp, valsp, lrowsp, rb_of, in_f,
+                                  chunks=chunks, rank_block=rb, **kw)
+        rows = np.bincount(tensor.indices[:, d], minlength=tensor.shape[d])
+        # The plan's rank block against narrower ones: each rank block is
+        # another set of pass-one blocks over the same chunks.
+        by_rank_block = {rbk: cuda_ms(torch, functools.partial(baked, rank_block=rbk),
+                                      TIMED_LAUNCHES) for rbk in (32, 64, 128, 256)}
+        modes.append({
+            "mode": d, "rows": int(tensor.shape[d]), "rows_used": int((rows > 0).sum()),
+            "largest_row_nnz": int(rows.max()), "slabs": pk.num_slabs,
+            "chunks": chunks.num_chunks, "rank_block": rb, "ms_by_rank_block": by_rank_block,
+            "max_abs_err": err, "tol": tol,
+            "autograd_err": auto_err, "autograd_tol": 1e-4 * scale,
+            "ms": cuda_ms(torch, baked, TIMED_LAUNCHES),
+            **pass_times(torch, baked, TIMED_LAUNCHES),
+            "host_ms": host_ms(torch, clock, baked, TIMED_LAUNCHES),
+            "plain_ms": cuda_ms(torch, lambda: ks.mttkrp_slab_plain(
+                idxp, valsp, lrowsp, rb_of, in_f, **kw), 5),
+            **slab_bound(pk.num_slabs * pk.tile, len(others), chunks.numel(),
+                         sum(tensor.shape[w] for w in others),
+                         pk.num_row_blocks * pk.block_rows, rank=EMBED_RANK)})
+    del look, auto, leaves
+    step = device_idle(torch, lambda: fe.grad_factors_mttkrp(p, toks, dY, V), clock)
+
+    # AdamW on A, B and C: B1f's gradients of A and B against autograd's
+    # (C's gradient is autograd's in both runs).
+    cfg = optim.AdamWConfig(lr=1e-3, warmup_steps=0, schedule="constant")
+
+    def adamw_steps(b1f: bool):
+        params = {k: v.clone() for k, v in p.items()}
+        state = optim.init_state(params)
+        for _ in range(EMBED_ADAMW_STEPS):
+            x = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+            grads = dict(zip("ABC", torch.autograd.grad(
+                fe.cpd_embed_lookup(x, toks, V), (x["A"], x["B"], x["C"]), dY)))
+            if b1f:
+                grads["A"], grads["B"] = fe.grad_factors_mttkrp(params, toks, dY, V)
+            params, state, _ = optim.apply_updates(cfg, params, grads, state)
+        return params
+
+    with_b1f, with_autograd = adamw_steps(True), adamw_steps(False)
+    adamw_err = {k: rel_err(with_b1f[k], with_autograd[k]) for k in "ABC"}
+    check(max(adamw_err.values()) <= 1e-5, f"embed: AdamW on B1f's gradients off by "
+                                           f"{adamw_err}")
+    moved = {k: rel_err(with_autograd[k], p[k]) for k in "ABC"}
+    check(min(moved.values()) > 0, f"embed: AdamW left a factor unchanged {moved}")
+    return {"phase": "embed", "model": "qwen1.5-4b", "vocab": EMBED_VOCAB,
+            "padded_vocab": V, "factor_vocab": list(fe.factor_vocab(V)),
+            "d_model": EMBED_D, "rank": EMBED_RANK, "batch": list(EMBED_BATCH),
+            "zipf_exponent": EMBED_ZIPF, "kappa": EMBED_KAPPA,
+            "unique_tokens": int(torch.unique(toks).numel()),
+            "generate_s": gen_s, "launches": launches,
+            "lookup_rel_err": lookup_err, "dense_table_bytes": table_bytes,
+            "batch_tensor_ms": batch_ms, "make_plan_ms": make_plan_ms,
+            "pack_upload_ms": pack_ms, "modes": modes,
+            "b1f_ms": sum(m["ms"] for m in modes),
+            "b1f_device_ms": sum(m["pass_one_ms"] + m["pass_two_ms"] for m in modes),
+            "b1f_plain_ms": sum(m["plain_ms"] for m in modes),
+            "b1f_bound_ms": sum(m["bound_ms"] for m in modes),
+            "library_ms": library_ms, "library": "torch.autograd.grad of the lookup",
+            "grad_step": step, "adamw_steps": EMBED_ADAMW_STEPS,
+            "adamw_rel_err": adamw_err, "adamw_moved": moved}
 
 
 def factors_close(np, got, ref, tol: float = 1e-3):
@@ -1037,6 +1230,7 @@ def dist_runs(torch, np, clock, ks, mesh, t, w):
             slots = int(rb_of.shape[0]) * tile
             entry.update(
                 ms=cuda_ms(torch, kernel, TIMED_LAUNCHES),
+                **pass_times(torch, kernel, TIMED_LAUNCHES),
                 plain_ms=cuda_ms(torch, lambda: ks.mttkrp_slab_plain(
                     idxp, valsp, lrowsp, rb_of, in_f, **kw), 5),
                 psum_ms=cuda_ms(torch, lambda: mesh.psum(partial), TIMED_LAUNCHES),
@@ -1063,7 +1257,9 @@ def dist_runs(torch, np, clock, ks, mesh, t, w):
 def pod_runs(torch, np, clock, ks, mesh, lanes, lane_w, cap):
     """One rank's part of the ``pod`` phase: ``BatchedEngine(mesh=...)`` on
     the first ``POD_REQUESTS`` requests of the uber bucket per method, each
-    run's launches counted from 0."""
+    run's launches counted from 0; the same requests through the service
+    (``service_run``); a zero iteration budget."""
+    from repro_torch.core.coo import random_sparse
     from repro_torch.obs import trace
     from repro_torch.serve import BatchedEngine
 
@@ -1103,13 +1299,77 @@ def pod_runs(torch, np, clock, ks, mesh, lanes, lane_w, cap):
             "dispatch": {k: dispatch.get(k) for k in (
                 "B", "devices", "B_per_device", "device_nnz", "lane_placement",
                 "imbalance", "imbalance_contiguous", "device_nnz_contiguous")}}
+    out["service"] = service_run(ks, clock, mesh, lanes, lane_w, cap)
+    # A zero iteration budget (ROADMAP C3) on two small requests.
+    small = [random_sparse(UBER_SHAPE, ZERO_BUDGET_NNZ, seed=50 + b) for b in range(2)]
+    zero = BatchedEngine(RANK, backend="slab", check_every=DIST_CHECK, mesh=mesh
+                         ).decompose_batch(small, n_iters=0, seeds=[0, 1])
+    out["zero_budget"] = [{"iters": x.iters, "host_syncs": x.host_syncs,
+                           "engine": x.engine, "fits": x.fits} for x in zero]
+    return out
+
+
+def service_run(ks, clock, mesh, lanes, lane_w, cap):
+    """``DecompositionService(mesh=)`` on the pod's requests under each of
+    ``SERVICE_METHODS``, in one service: one bucket per method whose cap
+    is the pod engine's, one flush each at the pod's batch quantum, one
+    drain.  Rank 0 submits and drains; another rank serves in
+    ``drain()``."""
+    from repro_torch.serve import BucketPolicy, DecompositionService
+
+    svc = DecompositionService(RANK, backend="slab", check_every=DIST_CHECK, mesh=mesh,
+                               batch_quantum=POD_QUANTUM, max_batch=LANES,
+                               policy=BucketPolicy(quantum=cap, min_cap=1),
+                               clock=lambda: 0.0)
+    reset_launches(ks)
+    t0 = clock.now()
+    results, served = None, None
+    if svc.controller:
+        futs = {m: [svc.submit(x, n_iters=DIST_SWEEPS, tol=-1.0, seed=b, method=m,
+                               **({"weights": lane_w[b]} if m == "masked" else {}))
+                    for b, x in enumerate(lanes)] for m in SERVICE_METHODS}
+        svc.drain()
+        results = {m: [{"fits": r.fits, "factors": r.factors, "weights": r.weights,
+                        "iters": r.iters, "host_syncs": r.host_syncs, "engine": r.engine}
+                       for r in (f.result() for f in fs)] for m, fs in futs.items()}
+    else:
+        served = svc.drain()
+    return {"results": results, "served": served, "wall_s": clock.now() - t0,
+            "launches": ks.LAUNCHES["mttkrp_slab_batched"],
+            "batches": svc.snapshot()["batches"], "mesh_size": mesh.size}
+
+
+def cross_pod_check(torch, dev, shapes):
+    """One compressed and one plain ``cross_pod_mean`` of seeded per-rank
+    gradients of ``shapes`` over a 'pod' mesh of every rank: the largest
+    error of each against the exact mean, the int8 bound (the ranks' mean
+    of half a quantization step), and whether the plain mean is bitwise
+    psum / kappa."""
+    from repro_torch import optim
+    from repro_torch.launch import make_mesh
+
+    pod = make_mesh((torch.distributed.get_world_size(),), ("pod",), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(100 + pod.rank)
+    g = {k: torch.randn(s, generator=gen, device=dev) for k, s in shapes.items()}
+    err = {k: torch.zeros_like(v) for k, v in g.items()}
+    mean, new_err = optim.cross_pod_mean(g, err, pod)
+    plain, _ = optim.cross_pod_mean(g, err, pod, compress=False)
+    out = {}
+    for k, v in g.items():
+        exact = pod.psum(v) / pod.size
+        half_step = optim.quantize(v)[1].reshape(()) * 0.5
+        out[k] = {"max_abs_err": float((mean[k] - exact).abs().max()),
+                  "bound": float(pod.psum(half_step)) / pod.size,
+                  "residual_max": float(new_err[k].abs().max()),
+                  "plain_bitwise_psum_over_kappa": bool(torch.equal(plain[k], exact))}
     return out
 
 
 def rank_work(mesh, cfg):
     """A spawned rank of the kappa = 2 mesh: the parent's chicago stand-in
     and uber requests, loaded from ``cfg["inputs"]``, then its part of
-    ``dist`` and ``pod`` (the batch mesh is the same process group)."""
+    ``dist`` and ``pod`` (the batch mesh is the same process group) and a
+    ``cross_pod_mean`` of the embed phase's gradient shapes."""
     import numpy as np
     import torch
 
@@ -1130,7 +1390,8 @@ def rank_work(mesh, cfg):
     del t, w
     pod = pod_runs(torch, np, clock, ks, make_batch_mesh(device=cfg["device"]),
                    lanes, lane_w, cfg["cap"])
-    return {"load_s": load_s, "dist": dist, "pod": pod}
+    return {"load_s": load_s, "dist": dist, "pod": pod,
+            "cross_pod": cross_pod_check(torch, mesh.device, cfg["grad_shapes"])}
 
 
 def dist_pod_phases(torch, np, clock, ks, t, w, refs, lanes, lane_w, cap, batched_res, cfg):
@@ -1269,6 +1530,15 @@ def dist_pod_phases(torch, np, clock, ks, t, w, refs, lanes, lane_w, cap, batche
                 np.array_equal(x, y) for x, y in zip(a["factors"], c["factors"]))
                 for a, c in zip(g["results"], res0)) for g in got)
             check(same, f"pod kappa {kappa} {method}: ranks disagree")
+            if method in SERVICE_METHODS:
+                svc_res = per_rank[0]["pod"]["service"]["results"][method]
+                check(len(svc_res) == cfg["requests"] and all(
+                    a["fits"] == b["fits"] and a["iters"] == b["iters"]
+                    and a["host_syncs"] == b["host_syncs"] == 1 and a["engine"] == "pod"
+                    and np.array_equal(a["weights"], b["weights"])
+                    and all(np.array_equal(x, y) for x, y in zip(a["factors"], b["factors"]))
+                    for a, b in zip(svc_res, res0)),
+                    f"pod kappa {kappa} {method}: the service differs from the pod engine")
             rows[method] = {
                 "max_fit_gap_vs_batched": max(gaps), "bitwise_vs_batched": bitwise,
                 "ranks_bitwise": same, "host_syncs": res0[0]["host_syncs"],
@@ -1276,7 +1546,29 @@ def dist_pod_phases(torch, np, clock, ks, t, w, refs, lanes, lane_w, cap, batche
                     "launches", "prepare_s", "execute_s", "device_ms", "kernel_ms",
                     "device_ms_per_window", "local_lanes", "window", "dispatch")}
                     for g in got]}
+        # One flush per method, every rank launching each flush's sweeps.
+        runs = [x["pod"]["service"] for x in per_rank]
+        flushes = len(SERVICE_METHODS)
+        check(all(r["launches"] == flushes * DIST_SWEEPS * len(UBER_SHAPE) for r in runs)
+              and runs[0]["batches"] == flushes
+              and all(r["served"] == flushes for r in runs[1:]),
+              f"pod kappa {kappa}: service launches / flushes "
+              f"{[(r['launches'], r['batches'], r['served']) for r in runs]}")
+        rows["service"] = {
+            "methods": list(SERVICE_METHODS), "bitwise_vs_pod_engine": True,
+            "per_rank": [{k: r[k] for k in ("wall_s", "launches", "batches", "served")}
+                         for r in runs]}
+        for x in per_rank:
+            check(all(z["iters"] == 0 and z["host_syncs"] == 1 and z["engine"] == "pod"
+                      and z["fits"] == [] for z in x["pod"]["zero_budget"]),
+                  f"pod kappa {kappa}: zero budget {x['pod']['zero_budget']}")
+        rows["zero_budget"] = per_rank[0]["pod"]["zero_budget"]
         pod_out[f"kappa{kappa}"] = rows
+    for x in two:
+        for k, c in x["cross_pod"].items():
+            check(c["max_abs_err"] <= c["bound"] * (1 + 1e-3) and c["plain_bitwise_psum_over_kappa"],
+                  f"cross_pod_mean {k}: {c}")
+    pod_out["cross_pod_mean"] = [x["cross_pod"] for x in two]
     return ({"phase": "dist", "tensor": "chicago", "shape": list(t.shape), "nnz": t.nnz,
              "rank": RANK, "sweeps": DIST_SWEEPS, "check_every": DIST_CHECK,
              "kappa1_s": k1_s, "kappa2_s": k2_s,
@@ -1792,9 +2084,19 @@ def main() -> int:
     plan_out = plan_phase(torch, np, clock, ks, dev, t, lanes[0])
     emit(plan_out)
 
+    # -- embed: the factorized embedding of qwen1.5-4b, its gradient as B1f --------
+    t0 = clock.now()
+    embed_out = embed_phase(torch, np, clock, ks, dev)
+    embed_out["phase_s"] = clock.now() - t0
+    emit(embed_out)
+    torch.cuda.empty_cache()
+
     # -- dist and pod: the mesh paths, kappa = 1 (NCCL) and 2 (gloo, one card) ---
     t0 = clock.now()
-    cfg = {"device": "cuda", "requests": POD_REQUESTS, "cap": cap}
+    grad_shapes = {"dA": (embed_out["factor_vocab"][0], EMBED_RANK),
+                   "dB": (embed_out["factor_vocab"][1], EMBED_RANK)}
+    cfg = {"device": "cuda", "requests": POD_REQUESTS, "cap": cap,
+           "grad_shapes": grad_shapes}
     dist_out, pod_out = dist_pod_phases(
         torch, np, clock, ks, t, w, {"cp": res, "nncp": nn, "masked": mk}, lanes, lane_w,
         cap, batched_res, cfg)
@@ -1824,6 +2126,7 @@ def main() -> int:
                      {"main_path": launches, "methods": nn_launches["mttkrp_slab"],
                       "stream": new_phases["stream"]["launches"],
                       "plan": plan_out["launches"],
+                      "embed": embed_out["launches"]["mttkrp_slab"],
                       "dist": dist_out["kappa1"]["ranks"][0]["b1e_launches"],
                       "dist_kappa2_ranks": [x["b1e_launches"]
                                             for x in dist_out["kappa2"]["ranks"]]}),
@@ -1843,7 +2146,10 @@ def main() -> int:
                                  for m in METHODS),
                       "pod_kappa2_ranks": [
                           sum(pod_out["kappa2"][m]["per_rank"][r]["launches"]
-                              for m in METHODS) for r in range(2)]}),
+                              for m in METHODS) for r in range(2)],
+                      "pod_service": pod_out["kappa1"]["service"]["per_rank"][0]["launches"],
+                      "pod_service_kappa2_ranks": [
+                          r["launches"] for r in pod_out["kappa2"]["service"]["per_rank"]]}),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

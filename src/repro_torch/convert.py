@@ -13,6 +13,13 @@ The reference's batched service carries one stacked state, every leaf
 with a leading batch dimension (B, ...); the port's carries one state per
 lane.  ``batch_from_reference`` and ``batch_to_host`` convert between the
 two.
+
+Model parameters and optimizer state are trees of dicts.
+``params_from_reference`` turns the reference's (numpy leaves, such as
+the CPD embedding factors ``{"A", "B", "C"}`` of
+``repro.models.factorized_embed``) into the port's tensors, and
+``adamw_state_from_reference`` does the same for an AdamW state
+(``repro.optim.init_state`` or a later step's).
 """
 from __future__ import annotations
 
@@ -90,3 +97,31 @@ def stream_state_from_reference(ref, session):
                       tuple(np.array(G, dtype=np.float32) for G in grams),
                       np.array(weights, dtype=np.float32))
     return session
+
+
+def _host_tensor(arr) -> torch.Tensor:
+    """A CPU tensor of a numpy array (``ml_dtypes`` bfloat16 included)."""
+    arr = np.asarray(arr)
+    if str(arr.dtype) == "bfloat16":
+        return torch.from_numpy(np.array(arr).view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(np.array(arr))
+
+
+def params_from_reference(tree, device="cuda"):
+    """The port's tree (dicts of tensors on ``device``, dtypes kept) of a
+    reference parameter tree with numpy leaves, e.g.
+    ``jax.tree.map(np.asarray, params)``."""
+    dev = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: params_from_reference(v, dev) for k, v in tree.items()}
+    return _host_tensor(tree).to(dev)
+
+
+def adamw_state_from_reference(state, device="cuda") -> dict:
+    """The port's AdamW state of the reference's ``{"mu", "nu", "step"}``
+    (numpy leaves): float32 moments and a 0-d int32 step on ``device``."""
+    dev = resolve_device(device)
+    return {"mu": params_from_reference(state["mu"], dev),
+            "nu": params_from_reference(state["nu"], dev),
+            "step": torch.tensor(int(np.asarray(state["step"])), dtype=torch.int32,
+                                 device=dev)}

@@ -13,7 +13,8 @@ Two schemes, chosen adaptively per output mode against kappa partitions:
 Partitioning is one-time preprocessing per tensor per mode.  The arrays
 are bitwise those of ``repro.core.load_balance``.  ``scheme_cost`` /
 ``choose_scheme_cost_based`` price both schemes from the partitioning
-statistics (``layout`` ``policy="cost"``).
+statistics (``layout`` ``policy="cost"``); ``balance_bound_holds`` checks
+a partitioning against Graham's 4/3 bound.
 """
 from __future__ import annotations
 
@@ -179,3 +180,18 @@ def partition_mode(
     offsets = np.zeros(kappa + 1, dtype=np.int64)
     np.cumsum(counts, out=offsets[1:])
     return Partitioning(scheme, mode, kappa, perm, offsets, None)
+
+
+def balance_bound_holds(part: Partitioning, tensor: SparseTensor) -> bool:
+    """Check Graham's 4/3 bound for greedy scheme-1 partitionings.
+
+    The guarantee is max_load <= opt * 4/3 where opt >= max(mean_load,
+    max_single_vertex_degree) -- the latter because a vertex is atomic.
+    A scheme-2 split is held to its equal share, ceil(nnz / kappa).
+    """
+    loads = part.loads.astype(np.float64)
+    if part.scheme == Scheme.NNZ_PARTITION:
+        return bool(loads.max() <= np.ceil(tensor.nnz / part.kappa))
+    degrees = tensor.mode_degrees(part.mode).astype(np.float64)
+    opt_lb = max(loads.sum() / part.kappa, degrees.max() if len(degrees) else 0.0)
+    return bool(loads.max() <= (4.0 / 3.0) * opt_lb + 1e-9)

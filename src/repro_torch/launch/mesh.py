@@ -10,7 +10,11 @@ collectives the distributed engine and the pod path need, on device
 tensors:
 
   * ``psum(x)``       -- ``all_reduce`` with SUM (``lax.psum``);
-  * ``all_gather(x)`` -- a stacked ``(κ, ...)`` result (``lax.all_gather``).
+  * ``all_gather(x)`` -- a stacked ``(κ, ...)`` result (``lax.all_gather``);
+
+and two on picklable host objects, for a controller rank that hands its
+work to the others (``serve.DecompositionService`` over κ ranks):
+``broadcast_object`` and ``all_gather_object``.
 
 A mesh of one rank needs no process group; its collectives are the
 identity, as a one-device ``shard_map`` is.  Ranks come up through
@@ -125,6 +129,37 @@ class Mesh:
             return torch.stack(parts)
 
         return self._run(x, gather)
+
+    def broadcast_object(self, obj):
+        """Rank 0's picklable ``obj`` on every rank (the other ranks' ``obj``
+        is ignored); the identity on a mesh of one rank."""
+        if self.size == 1:
+            return obj
+        box = [obj if self.rank == 0 else None]
+        self._run_objects(lambda: dist.broadcast_object_list(box, src=0,
+                                                             group=self.group))
+        return box[0]
+
+    def all_gather_object(self, obj) -> list:
+        """Every rank's picklable ``obj`` in rank order; ``[obj]`` on a mesh
+        of one rank."""
+        if self.size == 1:
+            return [obj]
+        out = [None] * self.size
+        self._run_objects(lambda: dist.all_gather_object(out, obj, group=self.group))
+        return out
+
+    def _run_objects(self, collective) -> None:
+        """Run an object collective, counted and timed.  NCCL moves the
+        pickled bytes through the current card: make it this rank's."""
+        t0 = obs_clock.now()
+        if self.backend == "nccl":
+            with torch.cuda.device(self.device):
+                collective()
+        else:
+            collective()
+        self.stats["collectives"] += 1
+        self.stats["wait_s"] += obs_clock.now() - t0
 
     def barrier(self) -> None:
         if self.group is not None:

@@ -17,8 +17,9 @@
                     streaming-session gauges, SLO health.
 
 ``runtime.ALSRunner`` fronts this service.  ``DecompositionService(mesh=)``
-takes a mesh of one rank; across ranks it needs a controller that
-broadcasts its flushes (not ported yet).
+runs its flushes on the pod path; over several ranks, rank 0 is the
+controller that takes the requests and broadcasts each flush to the other
+ranks, which serve it in ``drain()``.
 """
 from .batched_engine import BatchedEngine, batched_cache_stats
 from .buckets import Bucket, BucketPolicy, pad_tensor, pad_weights, repeat_pad

@@ -606,6 +606,15 @@ class BatchedEngine:
         B, n_dev = prep.batch, self.num_devices
         per_dev = B // n_dev
         max_windows = -(-prep.max_iters // self.check_every)
+        if max_windows == 0:                       # n_iters <= 0
+            # The reference returns before any shard_map: the initial
+            # states, no sweeps, one host read.  Here the read is the
+            # gather, which every rank reaches (max_iters is the batch's).
+            empty = torch.zeros((0, per_dev), dtype=torch.float32,
+                                device=self.device)
+            flat = self.mesh.all_gather(self._flat_lanes(prep.carry, empty)
+                                        ).cpu().numpy()
+            return self._results(prep, flat, 0, 1, "pod")
         dev_nnz = plan_mod.pod_device_nnz(prep.lane_nnz, n_dev)
         placement = {"lane_placement": "contiguous"}
         if prep.lane_of is not None:

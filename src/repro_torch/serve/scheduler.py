@@ -34,6 +34,26 @@ accumulates the measured overlap; ``join()`` (or ``Future.result()``)
 waits out in-flight dispatches.  Results are bitwise the synchronous
 service's: the same kernels run on the same inputs in the same order.
 
+Over κ ranks (``DecompositionService(mesh=)`` with ``mesh.size > 1``).
+The reference is single-controller: one process cuts the batches and one
+``shard_map`` runs them on every device.  The port's mesh is one process
+per rank, and flush triggers read each process's clock, so κ schedulers
+would cut different batches.  Rank 0 is the controller: it alone takes
+submits and runs the triggers.  Before it executes a flush, it
+broadcasts the flush (the requests as host arrays and every argument of
+``prepare_batch``) to the other ranks, the followers; each prepares the
+same batch, the ranks all-gather whether their preparation failed, and
+then every rank runs ``BatchedEngine(mesh=)``'s pod path on it, in the
+controller's flush order.  Futures resolve on the controller; a
+follower's preparation error resolves them with a ``RuntimeError`` that
+names the rank.  A follower serves flushes in ``drain()`` until the
+controller's ``drain()`` broadcasts a stop.  Every collective of a flush
+runs on one thread per rank: the flushing thread, or under double
+buffering the dispatch worker; the controller's ``drain()`` broadcasts
+its stop after ``join()``.  An error inside the pod's execution on one
+rank is not exchanged: the other ranks' gather waits on it until the
+process group's timeout.
+
 Engine errors: any ``BaseException`` from either half resolves every
 future of the batch (and of the batches popped with it) with the error,
 as the reference does.  One that is not an ``Exception`` (a
@@ -485,15 +505,60 @@ class BatchScheduler:
                 execute_s=execute_s, overlap_s=overlap_s)
 
 
+class _Controller:
+    """Rank 0's front of the engine on a mesh of several ranks, in the
+    scheduler's place of the engine: ``prepare_batch`` prepares the
+    controller's lanes and keeps the flush's arguments;
+    ``execute_prepared`` broadcasts them to the followers, raises if any
+    rank failed to prepare, and runs the pod path (see the module
+    docstring)."""
+
+    def __init__(self, engine: BatchedEngine):
+        self.engine = engine
+        self.mesh = engine.mesh
+        self.device = engine.device
+        self.num_devices = engine.num_devices
+
+    def prepare_batch(self, tensors, **kw):
+        return (list(tensors), kw), self.engine.prepare_batch(tensors, **kw)
+
+    def execute_prepared(self, prepared) -> list[CPDResult]:
+        flush, prep = prepared
+        self.mesh.broadcast_object(flush)
+        failed = [f"rank {r} failed to prepare the flush: {e}"
+                  for r, e in enumerate(self.mesh.all_gather_object(None))
+                  if e is not None]
+        if failed:
+            raise RuntimeError("; ".join(failed))
+        return self.engine.execute_prepared(prep)
+
+
+def _serve_flushes(engine: BatchedEngine) -> int:
+    """A follower rank: prepare and run every flush the controller
+    broadcasts, until its stop (``None``); returns the flushes run."""
+    mesh, served = engine.mesh, 0
+    while (flush := mesh.broadcast_object(None)) is not None:
+        tensors, kw = flush
+        prep, err = None, None
+        try:
+            prep = engine.prepare_batch(tensors, **kw)
+        except Exception as exc:
+            err = f"{type(exc).__name__}: {exc}"
+        if all(e is None for e in mesh.all_gather_object(err)):
+            engine.execute_prepared(prep)
+            served += 1
+    return served
+
+
 class DecompositionService:
     """Convenience facade: engine + scheduler + metrics in one object.
     ``device`` defaults to the card and raises without it.  ``mesh`` (a
-    batch mesh of ONE rank) runs every flush through the engine's pod
-    path.  A mesh of more ranks raises ``NotImplementedError``: the flush
-    triggers read each controller's wall clock, so κ controllers would cut
-    different batches and wait forever in the first collective; a
-    controller rank that broadcasts its flushes is ``ROADMAP.md`` Queue A
-    item 11's open part.
+    batch mesh) runs every flush through the engine's pod path.  On a
+    mesh of several ranks every rank builds the service; rank 0, the
+    controller, takes the submits, and the other ranks call ``drain()``,
+    which serves the controller's flushes until the controller's own
+    ``drain()`` (see the module docstring).  ``submit`` and ``poll``
+    raise on a follower.
 
     >>> svc = DecompositionService(rank=16, max_batch=8)
     >>> futs = [svc.submit(t) for t in tensors]
@@ -508,12 +573,6 @@ class DecompositionService:
                  double_buffer: bool = False, slo=None,
                  clock: Callable[[], float] = obs_clock.now,
                  device="cuda", mesh=None):
-        if mesh is not None and mesh.size > 1:
-            raise NotImplementedError(
-                f"DecompositionService over a mesh of {mesh.size} ranks needs "
-                f"a controller rank that broadcasts its flushes (ROADMAP.md "
-                f"Queue A item 11); run BatchedEngine(mesh=...) on every rank "
-                f"instead")
         self.engine = BatchedEngine(rank, kappa=kappa, backend=backend,
                                     check_every=check_every,
                                     batch_quantum=batch_quantum,
@@ -521,22 +580,40 @@ class DecompositionService:
         # slo: an obs.health.SLOPolicy; snapshot() then carries a live
         # "health" section and breach onsets emit health.breach events.
         self.metrics = ServiceMetrics(slo=slo)
+        several = self.engine.num_devices > 1
+        self.controller = not several or mesh.rank == 0
         self.scheduler = BatchScheduler(
-            self.engine, policy=policy, max_batch=max_batch,
-            max_wait_s=max_wait_s, batch_quantum=batch_quantum,
-            double_buffer=double_buffer, metrics=self.metrics, clock=clock)
+            _Controller(self.engine) if several else self.engine,
+            policy=policy, max_batch=max_batch, max_wait_s=max_wait_s,
+            batch_quantum=batch_quantum, double_buffer=double_buffer,
+            metrics=self.metrics, clock=clock)
+
+    def _refuse_on_follower(self, what: str) -> None:
+        if not self.controller:
+            raise RuntimeError(
+                f"{what} on rank {self.engine.mesh.rank}: only the controller, "
+                f"rank 0, takes requests; a follower serves its flushes in drain()")
 
     def submit(self, tensor: SparseTensor, **kw) -> DecompositionFuture:
+        self._refuse_on_follower("submit")
         return self.scheduler.submit(tensor, **kw)
 
     def poll(self) -> int:
+        self._refuse_on_follower("poll")
         return self.scheduler.poll()
 
     def drain(self) -> int:
         """Flush everything still queued, then wait for any in-flight
-        double-buffered dispatches to land (futures resolved)."""
+        double-buffered dispatches to land (futures resolved).  Over
+        several ranks the controller then broadcasts a stop, and a
+        follower serves flushes until that stop.  Returns the batches
+        flushed (on a follower: served)."""
+        if not self.controller:
+            return _serve_flushes(self.engine)
         n = self.scheduler.flush()
         self.scheduler.join()
+        if self.engine.num_devices > 1:
+            self.engine.mesh.broadcast_object(None)      # the followers' stop
         return n
 
     def snapshot(self) -> dict:

@@ -446,3 +446,24 @@ def test_pod_of_one_rank_equals_batched_on_card(cuda, method):
         assert a.fits == b.fits
         for Fa, Fb in zip(a.factors, b.factors):
             assert np.array_equal(Fa, Fb)
+
+
+@pytest.mark.cuda
+def test_factorized_embedding_gradient_on_card(cuda):
+    """B1f: the embedding gradient's mode-0 and mode-1 MTTKRP through the
+    kernel, two launches, against the segment backend on the CPU."""
+    from repro_torch.models import factorized_embed as fe
+
+    V, d, R = 500, 16, 32
+    rng = np.random.default_rng(3)
+    p = {k: torch.as_tensor(rng.standard_normal(s).astype(np.float32))
+         for k, s in (("A", (23, R)), ("B", (22, R)), ("C", (d, R)))}
+    toks = torch.as_tensor(rng.integers(0, V, (4, 64)))
+    dY = torch.as_tensor(rng.standard_normal((4, 64, d)).astype(np.float32))
+    ref = fe.grad_factors_mttkrp(p, toks, dY, V, backend="segment")
+    before = ks.LAUNCHES["mttkrp_slab"]
+    got = fe.grad_factors_mttkrp({k: v.to(cuda) for k, v in p.items()}, toks.to(cuda),
+                                 dY.to(cuda), V)
+    assert ks.LAUNCHES["mttkrp_slab"] - before == 2
+    for g, r in zip(got, ref):
+        assert float((g.cpu() - r).abs().max()) <= 1e-5 * float(r.abs().sum())

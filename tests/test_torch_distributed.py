@@ -14,7 +14,9 @@ on the same seed, at its own distributed tolerances
 (``tests/distributed/test_multidevice.py``): fits within 1e-4, factors
 within 1e-3.  Inside the port: factors bitwise equal across ranks, one
 host read per window plus one, the slab kernel's branch with a mesh (its
-plain version here) within 1e-5 of the single-device slab MTTKRP.
+plain version here) within 1e-5 of the single-device slab MTTKRP.  The
+reference is imported inside the fixtures that use it, so that the
+spawned ranks, which import this module, do not load JAX.
 """
 import time
 
@@ -22,8 +24,6 @@ import numpy as np
 import pytest
 import torch
 
-from repro.core import cpd_als as r_cpd_als
-from repro.core import random_sparse as r_random_sparse
 from repro_torch.core import als_device
 from repro_torch.core.coo import random_sparse
 from repro_torch.core.distributed import (_collect_dist_data,
@@ -97,6 +97,8 @@ def rank_cases(mesh):
 
 @pytest.fixture(scope="module")
 def tensors():
+    from repro.core import random_sparse as r_random_sparse
+
     rt = r_random_sparse(SHAPE, NNZ, seed=SEED, distribution="powerlaw")
     tt = random_sparse(SHAPE, NNZ, seed=SEED, distribution="powerlaw")
     return rt, tt
@@ -104,6 +106,8 @@ def tensors():
 
 @pytest.fixture(scope="module")
 def reference(tensors):
+    from repro.core import cpd_als as r_cpd_als
+
     rt, _ = tensors
     w = _weights(rt.nnz)
     return {m: r_cpd_als(rt, R, n_iters=N_ITERS, tol=-1.0, seed=INIT_SEED,

@@ -85,6 +85,30 @@ def test_partitions_bitwise(kappa, assignment):
         assert a.imbalance() == b.imbalance()
 
 
+@pytest.mark.parametrize("kappa,seed,mode_count",
+                         [(2, 0, 2), (8, 13, 3), (64, 999, 3), (5, 7, 2), (33, 41, 3)])
+@pytest.mark.parametrize("scheme", ["INDEX_PARTITION", "NNZ_PARTITION"])
+def test_balance_bound_matches_reference(kappa, seed, mode_count, scheme):
+    """Graham's 4/3 bound on the partitions of
+    ``tests/core/test_load_balance.py::_graham_bound_case`` (greedy scheme 1),
+    and on scheme-2 and cyclic splits of the same tensors: the port's
+    ``balance_bound_holds`` gives the reference's boolean."""
+    shape = (37, 23, 11)[:mode_count] + (29,)
+    rt = r_coo.random_sparse(shape, 600, seed=seed, distribution="powerlaw")
+    tt = t_coo.random_sparse(shape, 600, seed=seed, distribution="powerlaw")
+    for d in range(rt.nmodes):
+        for assignment in ("greedy", "cyclic"):
+            a = r_lb.partition_mode(rt, d, kappa, scheme=r_lb.Scheme[scheme],
+                                    assignment=assignment)
+            b = t_lb.partition_mode(tt, d, kappa, scheme=t_lb.Scheme[scheme],
+                                    assignment=assignment)
+            assert (t_lb.balance_bound_holds(b, tt)
+                    == r_lb.balance_bound_holds(a, rt))
+        if scheme == "INDEX_PARTITION":
+            assert t_lb.balance_bound_holds(
+                t_lb.partition_mode(tt, d, kappa, scheme=t_lb.Scheme[scheme]), tt)
+
+
 @pytest.mark.parametrize("shape,nnz", SHAPES)
 @pytest.mark.parametrize("kappa", [1, 4, 16])
 def test_layouts_bitwise(shape, nnz, kappa):

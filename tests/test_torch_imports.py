@@ -1,6 +1,9 @@
-"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor anything of the JAX package ``repro``, nor ``msgpack``
-(absent on the card's machine; the port's checkpoints are npz + JSON)."""
+"""The port stands alone: ``repro_torch``, its examples and
+``chip_smoke.py`` import neither JAX nor anything of the JAX package
+``repro``, nor ``msgpack`` (absent on the card's machine; the port's
+checkpoints are npz + JSON).  Its ``core`` and ``kernels`` namespaces
+export the reference's names, with the one mapping of
+``repro_torch.kernels.FROM_REFERENCE``; the quickstart runs on the CPU."""
 import ast
 import os
 import subprocess
@@ -10,8 +13,10 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
+EXAMPLES = [ROOT / "examples" / "quickstart_torch.py",
+            ROOT / "examples" / "decompose_tensor_torch.py"]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + EXAMPLES
 FORBIDDEN = ("jax", "jaxlib", "repro", "msgpack")
 
 
@@ -34,7 +39,11 @@ def test_import_leaves_jax_out():
             "repro_torch.obs.calibrate, repro_torch.obs.history, "
             "repro_torch.obs.regress, repro_torch.obs.report, "
             "repro_torch.launch, repro_torch.launch.mesh, "
-            "repro_torch.core.distributed; "
+            "repro_torch.core.distributed, repro_torch.core, "
+            "repro_torch.kernels, repro_torch.models, "
+            "repro_torch.models.common, repro_torch.models.factorized_embed, "
+            "repro_torch.optim, repro_torch.optim.adamw, "
+            "repro_torch.optim.compress; "
             f"bad = sorted(m for m in sys.modules "
             f"if m.split('.')[0] in {FORBIDDEN!r}); "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -48,3 +57,29 @@ def test_no_jax_or_reference_imports(path):
     for name in _imported_modules(path):
         root = name.split(".")[0]
         assert root not in FORBIDDEN, f"{path}: imports {name}"
+
+
+def test_namespaces_export_the_reference_names():
+    import repro.core
+    import repro.kernels
+
+    import repro_torch.core
+    import repro_torch.kernels
+
+    assert repro_torch.core.__all__ == repro.core.__all__
+    assert len(repro_torch.core.__all__) == 35
+    mapped = [repro_torch.kernels.FROM_REFERENCE.get(n, n) for n in repro.kernels.__all__]
+    assert repro_torch.kernels.__all__ == mapped
+    assert len(mapped) == 10 and "mttkrp_slab" in mapped
+    for pkg in (repro_torch.core, repro_torch.kernels):
+        for name in pkg.__all__:
+            assert getattr(pkg, name) is not None, name
+
+
+def test_quickstart_runs_on_the_cpu():
+    # one thread: the test shares the host with the other test workers
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, str(EXAMPLES[0]), "--device", "cpu"],
+                          env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "final fit" in proc.stdout and "fused engine" in proc.stdout

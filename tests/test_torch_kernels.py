@@ -8,6 +8,8 @@ adding +0.0, the CPU wrapper being the plain version) are compared
 bitwise.  The card's
 cases are in ``test_torch_cuda.py``.
 """
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,11 +21,13 @@ from repro.core import mttkrp as r_mttkrp
 from repro.kernels import ops as r_ops
 from repro.kernels import ref as r_ref
 from repro.kernels.mttkrp_pallas import mttkrp_pallas
-from repro_torch.core import mttkrp as t_mttkrp
 from repro_torch.core.coo import random_sparse
 from repro_torch.kernels import mttkrp_slab as ks
 from repro_torch.kernels import ops as t_ops
 from repro_torch.kernels import ref as t_ref
+
+# ``repro_torch.core`` exports the function ``mttkrp`` under the module's name.
+t_mttkrp = importlib.import_module("repro_torch.core.mttkrp")
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

@@ -17,6 +17,8 @@ reference's for every shared ``(block_rows, tile)``, and ``grid`` equals
 the slab count ``pack_layout`` makes.  Feasibility is the kernel's
 shared-memory rule (``max_rank_block``).
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -31,9 +33,11 @@ from repro_torch.core import als_device
 from repro_torch.core import coo as t_coo
 from repro_torch.core import layout as t_layout
 from repro_torch.core import load_balance as t_lb
-from repro_torch.core import mttkrp as t_mttkrp
 from repro_torch.kernels import mttkrp_slab as ks
 from repro_torch.kernels import ops as t_ops
+
+# ``repro_torch.core`` exports the function ``mttkrp`` under the module's name.
+t_mttkrp = importlib.import_module("repro_torch.core.mttkrp")
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 TENSORS = [((40, 7, 33), 900), ((40, 7, 33, 5), 1500)]

@@ -9,16 +9,17 @@ its ``BatchedEngine(mesh=None)`` on the same requests and seeds, at the
 reference's own pod tolerances (``tests/serve/test_pod_engine.py``): fits
 within 1e-5, factors within 1e-4.  The pod's contract is held too: one
 host read per batch, ``engine == "pod"``, padding lanes invisible, and the
-``pod.window`` event counting the reference's windows.
+``pod.window`` event counting the reference's windows.  The reference is
+imported inside the fixture that uses it, so that the spawned ranks,
+which import this module, do not load JAX.
 """
 import math
 import types
 
 import numpy as np
 import pytest
+import torch
 
-from repro.core import random_sparse as r_random_sparse
-from repro.serve import BatchedEngine as RBatchedEngine
 from repro_torch.core.coo import random_sparse
 from repro_torch.launch import BATCH_AXIS, make_batch_mesh, spawn_ranks
 from repro_torch.obs import trace
@@ -73,6 +74,13 @@ def rank_pod(mesh):
     # Placement: balanced and contiguous give the same per-request results.
     skewed = [random_sparse(SHAPE, n, seed=10 + i, distribution="powerlaw")
               for i, n in enumerate([500, 480, 140, 120])]
+    # A zero iteration budget returns the initial states (ROADMAP C3).
+    eng = BatchedEngine(R, kappa=2, backend="slab", check_every=CHECK_EVERY,
+                        mesh=mesh)
+    with trace.capture() as tr:
+        out["zero"] = [_result(r) for r in eng.decompose_batch(
+            three, n_iters=0, seeds=[7, 8, 9], nnz_cap=CAP)]
+    out["zero_events"] = [r["name"] for r in tr.records()]
     out["placement"] = {}
     for placement in ("balanced", "contiguous"):
         eng = BatchedEngine(R, backend="segment", check_every=2, mesh=mesh,
@@ -87,6 +95,9 @@ def rank_pod(mesh):
 
 @pytest.fixture(scope="module")
 def reference():
+    from repro.core import random_sparse as r_random_sparse
+    from repro.serve import BatchedEngine as RBatchedEngine
+
     ts = _stream(r_random_sparse)
     out = {}
     for method in METHODS:
@@ -99,6 +110,9 @@ def reference():
                                    check_every=2).decompose_batch(
         _stream(r_random_sparse, n=3), n_iters=4, tol=-1.0, seeds=[7, 8, 9],
         nnz_cap=CAP)
+    out["zero"] = RBatchedEngine(rank=R, kappa=2, backend="segment",
+                                 check_every=CHECK_EVERY).decompose_batch(
+        _stream(r_random_sparse, n=3), n_iters=0, seeds=[7, 8, 9], nnz_cap=CAP)
     return out
 
 
@@ -208,10 +222,35 @@ def test_service_on_a_mesh_of_one_rank():
         assert g.fits == r.fits
 
 
+@pytest.mark.parametrize("kappa", [1, 2])
+def test_pod_zero_budget_returns_the_initial_state(ranks, reference, kappa):
+    """``n_iters=0`` on the pod path: no sweep, one host read, the initial
+    states, as the reference's early return gives (and its
+    ``BatchedEngine(mesh=None)``, the oracle here)."""
+    for r in ranks[kappa]:
+        assert "pod.dispatch" not in r["zero_events"]
+        assert len(r["zero"]) == 3
+        for g, ref in zip(r["zero"], reference["zero"]):
+            assert g["iters"] == ref.iters == 0 and g["fits"] == ref.fits == []
+            assert g["host_syncs"] == 1 and g["engine"] == "pod"
+            for Fa, Fb in zip(g["factors"], ref.factors):
+                np.testing.assert_allclose(Fa, Fb, rtol=1e-6, atol=1e-7)
+            np.testing.assert_allclose(g["weights"], ref.weights, rtol=1e-6)
+
+
 def test_service_refuses_a_mesh_of_several_ranks():
-    fake = types.SimpleNamespace(size=2, rank=0, axis_names=(BATCH_AXIS,))
-    with pytest.raises(NotImplementedError, match="Queue A item 11"):
-        DecompositionService(R, mesh=fake, device="cpu")
+    """Over several ranks only the controller (rank 0) takes requests: a
+    follower's ``submit`` and ``poll`` raise, before any collective
+    (``tests/test_torch_service_mesh.py`` runs the ranks)."""
+    fake = types.SimpleNamespace(size=2, rank=1, axis_names=(BATCH_AXIS,),
+                                 device=torch.device("cpu"))
+    svc = DecompositionService(R, mesh=fake, device="cpu")
+    assert not svc.controller
+    with pytest.raises(RuntimeError, match="only the controller"):
+        svc.submit(_stream(random_sparse, n=1)[0])
+    with pytest.raises(RuntimeError, match="only the controller"):
+        svc.poll()
+    assert svc.scheduler.pending() == 0
 
 
 def test_engine_refuses_a_2d_mesh_and_bad_placement():
