@@ -19,7 +19,9 @@ Model parameters and optimizer state are trees of dicts.
 the CPD embedding factors ``{"A", "B", "C"}`` of
 ``repro.models.factorized_embed``) into the port's tensors, and
 ``adamw_state_from_reference`` does the same for an AdamW state
-(``repro.optim.init_state`` or a later step's).
+(``repro.optim.init_state`` or a later step's).  ``cache_from_reference``
+turns an LM's KV cache (numpy leaves) into the port's, whose position is
+a host ``int``.
 """
 from __future__ import annotations
 
@@ -115,6 +117,19 @@ def params_from_reference(tree, device="cuda"):
     if isinstance(tree, dict):
         return {k: params_from_reference(v, dev) for k, v in tree.items()}
     return _host_tensor(tree).to(dev)
+
+
+def cache_from_reference(cache, device="cuda") -> dict:
+    """The port's LM cache of the reference's (``LM.init_cache`` or a
+    prefill's, numpy leaves): tensors on ``device``, dtypes kept, and
+    ``pos`` as an ``int``."""
+    dev = resolve_device(device)
+    out = {k: (cache_from_reference(v, dev) if isinstance(v, dict)
+               else _host_tensor(v).to(dev))
+           for k, v in cache.items() if k != "pos"}
+    if "pos" in cache:
+        out["pos"] = int(np.asarray(cache["pos"]))
+    return out
 
 
 def adamw_state_from_reference(state, device="cuda") -> dict:

@@ -14,7 +14,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 EXAMPLES = [ROOT / "examples" / "quickstart_torch.py",
-            ROOT / "examples" / "decompose_tensor_torch.py"]
+            ROOT / "examples" / "decompose_tensor_torch.py",
+            ROOT / "examples" / "serve_lm_torch.py"]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"] + EXAMPLES
 FORBIDDEN = ("jax", "jaxlib", "repro", "msgpack")
@@ -43,7 +44,11 @@ def test_import_leaves_jax_out():
             "repro_torch.kernels, repro_torch.models, "
             "repro_torch.models.common, repro_torch.models.factorized_embed, "
             "repro_torch.optim, repro_torch.optim.adamw, "
-            "repro_torch.optim.compress; "
+            "repro_torch.optim.compress, repro_torch.configs, "
+            "repro_torch.models.base, repro_torch.models.attention, "
+            "repro_torch.models.mlp, repro_torch.models.blocks, "
+            "repro_torch.models.lm, repro_torch.launch.steps, "
+            "repro_torch.launch.serve; "
             f"bad = sorted(m for m in sys.modules "
             f"if m.split('.')[0] in {FORBIDDEN!r}); "
             "print(bad); sys.exit(1 if bad else 0)")
