@@ -19,9 +19,13 @@ Model parameters and optimizer state are trees of dicts.
 the CPD embedding factors ``{"A", "B", "C"}`` of
 ``repro.models.factorized_embed``) into the port's tensors, and
 ``adamw_state_from_reference`` does the same for an AdamW state
-(``repro.optim.init_state`` or a later step's).  ``cache_from_reference``
-turns an LM's KV cache (numpy leaves) into the port's, whose position is
-a host ``int``.
+(``repro.optim.init_state`` or a later step's); every family's tree
+(MoE experts and router, SSM and Hymba blocks, Whisper's encoder and
+decoder stacks) has the same leaves in both packages, so nothing is
+mapped.  ``cache_from_reference`` turns a model's cache (numpy leaves:
+KV buffers and rings, SSM state and conv window, Whisper's ``self`` /
+``cross_k`` / ``cross_v``) into the port's, whose position is a host
+``int``.
 """
 from __future__ import annotations
 
@@ -120,9 +124,10 @@ def params_from_reference(tree, device="cuda"):
 
 
 def cache_from_reference(cache, device="cuda") -> dict:
-    """The port's LM cache of the reference's (``LM.init_cache`` or a
-    prefill's, numpy leaves): tensors on ``device``, dtypes kept, and
-    ``pos`` as an ``int``."""
+    """The port's cache of the reference's (``LM.init_cache``,
+    ``EncDec.init_cache`` or a prefill's, numpy leaves, nested dicts
+    included): tensors on ``device``, dtypes kept, and ``pos`` as an
+    ``int``."""
     dev = resolve_device(device)
     out = {k: (cache_from_reference(v, dev) if isinstance(v, dict)
                else _host_tensor(v).to(dev))

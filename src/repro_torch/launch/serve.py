@@ -58,9 +58,12 @@ def no_host_sync(dev):
 
 
 def generate(model, params, prompts, gen: int, *, quant_kv: bool = False,
-             prefix_embeds=None, forced=None, logits_out: list | None = None) -> dict:
+             prefix_embeds=None, encoder_embeds=None, forced=None,
+             logits_out: list | None = None) -> dict:
     """Prefill ``prompts`` (B, P) and decode greedily to ``gen`` tokens each,
     with a float32 KV cache (int8 with ``quant_kv``) on the prompts' device.
+    ``prefix_embeds`` (VLM) and ``encoder_embeds`` (Whisper's mel frames)
+    go to the prefill.
 
     ``forced`` (B, gen - 1), if given, is fed to the decode steps in place
     of the greedy tokens (teacher forcing: two runs then decode the same
@@ -78,6 +81,8 @@ def generate(model, params, prompts, gen: int, *, quant_kv: bool = False,
     batch = {"tokens": prompts}
     if prefix_embeds is not None:
         batch["prefix_embeds"] = prefix_embeds
+    if encoder_embeds is not None:
+        batch["encoder_embeds"] = encoder_embeds
 
     t0 = _mark(dev)
     logits, cache = prefill(params, cache, batch)
@@ -105,8 +110,9 @@ def serve(arch: str = "qwen1.5-4b", *, batch: int = 4, prompt_len: int = 64,
           gen: int = 32, quant_kv: bool = False, reduced: bool = False,
           device="cuda", seed: int = 0) -> dict:
     """The launcher's run: ``arch``'s config (reduced with ``reduced`` or
-    on the CPU), random parameters from ``seed``, prompts and VLM prefix
-    embeddings from ``seed + 1`` and ``seed + 2``, then ``generate``."""
+    on the CPU), random parameters from ``seed``, prompts from ``seed + 1``,
+    VLM prefix embeddings (0.02 x normal) or Whisper's encoder frames
+    (0.1 x normal) from ``seed + 2``, then ``generate``."""
     dev = resolve_device(device)
     cfg = get_config(arch)
     if reduced or dev.type == "cpu":
@@ -115,12 +121,16 @@ def serve(arch: str = "qwen1.5-4b", *, batch: int = 4, prompt_len: int = 64,
     params = model.init(torch.Generator(device=dev).manual_seed(seed), dev)
     prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len), device=dev,
                             generator=torch.Generator(device=dev).manual_seed(seed + 1))
-    prefix = None
+    kw = {}
     if cfg.num_prefix_tokens:
-        prefix = 0.02 * torch.randn(
+        kw["prefix_embeds"] = 0.02 * torch.randn(
             (batch, cfg.num_prefix_tokens, cfg.d_model), device=dev,
             generator=torch.Generator(device=dev).manual_seed(seed + 2))
-    out = generate(model, params, prompts, gen, quant_kv=quant_kv, prefix_embeds=prefix)
+    if cfg.enc_layers:
+        kw["encoder_embeds"] = 0.1 * torch.randn(
+            (batch, cfg.enc_seq, cfg.d_model), device=dev,
+            generator=torch.Generator(device=dev).manual_seed(seed + 2))
+    out = generate(model, params, prompts, gen, quant_kv=quant_kv, **kw)
     return {"cfg": cfg, **out}
 
 

@@ -1,10 +1,14 @@
 """Decoder-only LM assembly (port of ``repro.models.lm``): segments of
-stacked blocks with KV caches threaded through them, modality prefixes
-(VLM patch embeddings), meta tokens and the CPD-factorized embedding.
+stacked blocks with KV and SSM caches threaded through them, modality
+prefixes (VLM patch embeddings), Hymba meta tokens and the
+CPD-factorized embedding.
 
-A model is a list of ``Segment``s.  ``model_segments`` is pure and
-covers every family; ``LM`` runs the dense-segment families (``dense``
-and ``vlm``), the others waiting for their blocks (``blocks.py``).
+A model is a list of ``Segment``s.  Dense, MoE and Mamba2 archs have one
+segment; Hymba is [global, swa-stack, global, swa-stack, global] so its
+sliding-window layers carry a different mask and window-sized ring
+caches.  ``LM`` runs every decoder-only family (``dense``, ``vlm``,
+``moe``, ``ssm``, ``hybrid``); Whisper's ``encdec`` is ``EncDec``
+(``encdec.py``), and ``model_segments`` refuses it.
 
 The parameter tree is the reference's: a stacked segment keeps its
 leading layer axis, so ``repro_torch.convert.params_from_reference``
@@ -28,8 +32,6 @@ from .base import ModelConfig
 from .common import (PSpec, abstract_params, apply_norm, build_params,
                      logical_axes, norm_specs, softmax_cross_entropy,
                      stack_specs)
-
-FAMILIES = ("dense", "vlm")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,13 +77,9 @@ def _unstack(tree, n: int) -> list:
 
 
 class LM:
-    """Functional decoder-only language model (dense-segment families)."""
+    """Functional decoder-only language model."""
 
     def __init__(self, cfg: ModelConfig):
-        if cfg.family not in FAMILIES:
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet (the port's LM runs "
-                f"{', '.join(FAMILIES)})")
         self.cfg = cfg
         self.segments = model_segments(cfg)
 
@@ -132,7 +130,9 @@ class LM:
     def init_cache(self, batch: int, max_len: int, *, dtype=torch.bfloat16,
                    quant_kv: bool = False, device="cuda") -> dict:
         """Zeroed buffers, stacked per segment as the parameters are, and a
-        host ``int`` position."""
+        host ``int`` position.  ``dtype`` is the KV cache's; the SSM state
+        is float32 and the conv window the parameters' dtype
+        (``blocks.init_block_cache``)."""
         cfg = self.cfg
         dev = resolve_device(device)
         caches: dict[str, Any] = {"pos": 0}

@@ -65,7 +65,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import threading
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ThreadPoolExecutor, wait
 from typing import Callable
 
 import numpy as np
@@ -177,6 +177,10 @@ class BatchScheduler:
             max_workers=1, thread_name_prefix="serve-dispatch")
             if double_buffer else None)
         self._inflight: set = set()
+        # The first error a finished dispatch carried (only one that is
+        # not an ``Exception`` reaches the dispatch future): ``join()``
+        # raises it once ``_inflight`` has drained.
+        self._dispatch_error: BaseException | None = None
         self._exec_lock = threading.Lock()
         self._exec_intervals: collections.deque = collections.deque(
             maxlen=16)
@@ -256,14 +260,19 @@ class BatchScheduler:
     def join(self) -> None:
         """Wait for every in-flight double-buffered dispatch to complete
         (no-op without ``double_buffer``).  Futures resolve as dispatches
-        finish; call this before reading end-of-stream metrics."""
+        finish; call this before reading end-of-stream metrics.  An
+        error that is not an ``Exception`` (Ctrl-C) raised on the
+        dispatch worker is raised here, once, whether its dispatch
+        finished before this call or during it."""
         while True:
             with self._lock:
                 pending = list(self._inflight)
-            if not pending:
-                return
-            for f in pending:
-                f.result()
+                if not pending:
+                    exc, self._dispatch_error = self._dispatch_error, None
+                    break
+            wait(pending)
+        if exc is not None:
+            raise exc
 
     # -- flush machinery ----------------------------------------------------
     # Pop under the lock, execute outside it: a popped batch belongs to
@@ -410,7 +419,13 @@ class BatchScheduler:
                        dispatched_async=True)
 
     def _inflight_discard(self, fut) -> None:
+        # Record the error before the future leaves ``_inflight``: a
+        # dispatch that finishes before ``join()`` looks is no longer
+        # there for it to read.
+        exc = fut.exception()
         with self._lock:
+            if exc is not None and self._dispatch_error is None:
+                self._dispatch_error = exc
             self._inflight.discard(fut)
 
     def _overlap_with_exec(self, a0: float, a1: float) -> float:

@@ -6,9 +6,9 @@ Pure arithmetic, no JAX compute: for each of the ten archs the port's
 field, and so do ``padded_vocab``, ``param_count``,
 ``active_param_count``, ``model_segments`` (which both refuse the
 ``encdec`` family) and ``shape_applicable`` on each of the four
-``SHAPES``.  For the dense-segment archs ``token_specs``
-gives the reference's shapes and dtypes, and so do the LM's abstract
-parameters (dense and CPD-factorized embedding), with the reference's
+``SHAPES``.  For every arch ``token_specs`` gives the reference's shapes
+and dtypes, and so do the model's abstract parameters (``LM`` with a
+dense and a CPD-factorized embedding, ``EncDec``), with the reference's
 logical axes.
 """
 import dataclasses
@@ -25,7 +25,6 @@ from repro_torch.models import base, get_model
 from repro_torch.models import lm
 
 ARCHS = list(rconfigs.ARCHS)
-DENSE_SEGMENT = [a for a in ARCHS if rconfigs.get_config(a).family in ("dense", "vlm")]
 DTYPES = {"int32": torch.int32, "bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
@@ -81,7 +80,7 @@ def test_shape_applicable_matches_reference(arch, shape):
     assert got == ref
 
 
-@pytest.mark.parametrize("arch", DENSE_SEGMENT)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_token_specs_match_reference(arch):
     for name in rbase.SHAPES:
         ref = rbase.token_specs(rconfigs.get_config(arch), rbase.SHAPES[name])
@@ -101,7 +100,7 @@ def _flatten(tree, prefix=""):
 
 
 @pytest.mark.parametrize("cpd_rank", [0, 256], ids=["dense_embed", "cpd_embed"])
-@pytest.mark.parametrize("arch", DENSE_SEGMENT)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_abstract_params_match_reference(arch, cpd_rank):
     rcfg = dataclasses.replace(rconfigs.get_config(arch), cpd_embed_rank=cpd_rank)
     cfg = dataclasses.replace(configs.get_config(arch), cpd_embed_rank=cpd_rank)

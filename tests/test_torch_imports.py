@@ -47,7 +47,8 @@ def test_import_leaves_jax_out():
             "repro_torch.optim.compress, repro_torch.configs, "
             "repro_torch.models.base, repro_torch.models.attention, "
             "repro_torch.models.mlp, repro_torch.models.blocks, "
-            "repro_torch.models.lm, repro_torch.launch.steps, "
+            "repro_torch.models.lm, repro_torch.models.ssm, "
+            "repro_torch.models.encdec, repro_torch.launch.steps, "
             "repro_torch.launch.serve; "
             f"bad = sorted(m for m in sys.modules "
             f"if m.split('.')[0] in {FORBIDDEN!r}); "

@@ -9,7 +9,8 @@ qwen1.5-32b, minitron-4b (ReLU^2), phi4-mini-3.8b (GQA) and internvl2-1b
 (VLM prefix embeddings) hold ``forward`` to the reference; every
 dense-segment arch decodes as its own ``forward`` within the reference's
 5e-4; the int8 cache equals the reference's and stays within
-``test_arch_smoke.py``'s bound of the native one.
+``test_arch_smoke.py``'s bound of the native one.  The other families
+are held in ``test_torch_lm_families.py`` and ``test_torch_encdec.py``.
 ``rel(a, b) = max|a - b| / max|b|``, the reference's own measure.  The
 reference runs once, in a module-scoped fixture; parameters are its
 ``model.init`` draws, carried by ``params_from_reference``.
@@ -30,8 +31,6 @@ from repro_torch.models import get_model
 
 B, S, GEN = 2, 17, 4
 OTHERS = ["qwen1.5-32b", "minitron-4b", "phi4-mini-3.8b", "internvl2-1b"]
-WAITING = ["hymba-1.5b", "whisper-large-v3", "dbrx-132b", "granite-moe-1b-a400m",
-           "mamba2-780m"]
 
 
 def _rel(a, b) -> float:
@@ -255,9 +254,3 @@ def test_quantized_kv_decode_close():
     assert _rel(b.numpy(), a.numpy()) < 0.05
     assert torch.equal(torch.argmax(a, -1), torch.argmax(b, -1))
 
-
-@pytest.mark.parametrize("arch", WAITING)
-def test_get_model_raises_for_families_not_ported(arch):
-    cfg = configs.get_config(arch)
-    with pytest.raises(NotImplementedError, match=cfg.family):
-        get_model(cfg)

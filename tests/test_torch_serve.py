@@ -4,7 +4,8 @@
 The prefill and greedy decode steps give the reference's token ids for
 four steps on reduced qwen1.5-4b; ``generate`` fed its own tokens
 (teacher forcing) repeats its run; the launcher runs as a module on the
-CPU and exits 1 when its decode SLO is breached; asking for the card
+CPU, for qwen1.5-4b and one arch of each other family, and exits 1 when
+its decode SLO is breached; asking for the card
 where there is none raises.
 """
 import os
@@ -107,6 +108,17 @@ def test_launcher_serves_on_the_cpu():
     proc = _launch()
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "[serve] qwen1.5-4b: batch=2 prompt=8 gen=4 kv=native" in proc.stdout
+    assert "ms/tok" in proc.stdout and "RuntimeWarning" not in proc.stderr
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "mamba2-780m", "hymba-1.5b",
+                                  "whisper-large-v3"])
+def test_launcher_serves_every_family_on_the_cpu(arch):
+    """One arch of each family the dense-segment run above does not reach
+    (moe, ssm, hybrid, encdec), reduced, with the int8 cache."""
+    proc = _launch("--arch", arch, "--quant-kv")
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert f"[serve] {arch}: batch=2 prompt=8 gen=4 kv=int8" in proc.stdout
     assert "ms/tok" in proc.stdout and "RuntimeWarning" not in proc.stderr
 
 

@@ -11,6 +11,9 @@ single-device (``mesh=None``) path at the tolerances of
 bitwise the synchronous ones, compared only after ``drain()``.  No test
 triggers a flush by sleeping or timing.
 """
+import threading
+import time
+
 import numpy as np
 import pytest
 
@@ -417,6 +420,35 @@ def test_engine_error_delivered_via_futures(half, double_buffer, error):
         for fut in (f, rf):
             with pytest.raises(error, match="engine down"):
                 fut.result()
+
+
+def test_dispatch_base_exception_reaches_join_after_dispatch_finished():
+    """An error that is not an ``Exception``, raised on the dispatch
+    worker by a dispatch that has finished and left ``_inflight``
+    before ``join()`` is called, still reaches the caller from
+    ``join()``, once."""
+    sched = BatchScheduler(BatchedEngine(3, kappa=2, check_every=2, device="cpu"),
+                           max_batch=8, max_wait_s=1e9, clock=FakeClock(),
+                           double_buffer=True)
+    futs = [sched.submit(t, n_iters=2, tol=-1.0)
+            for t in _requests(random_sparse, 2)]
+    raised = threading.Event()
+
+    def boom(*a, **k):
+        raised.set()
+        raise _Interrupt("engine down")
+
+    sched.engine.execute_prepared = boom
+    sched.flush()
+    assert raised.wait(10.0)
+    deadline = time.monotonic() + 10.0
+    while sched._inflight and time.monotonic() < deadline:
+        time.sleep(0.01)
+    assert not sched._inflight
+    assert all(f.done() for f in futs)
+    with pytest.raises(_Interrupt, match="engine down"):
+        sched.join()
+    sched.join()
 
 
 def test_submit_validates_weights_eagerly():
