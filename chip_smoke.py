@@ -63,8 +63,9 @@ Then
                granite-moe-1b-a400m (24 layers, 32 experts top-8),
                mamba2-780m (48 SSD layers), hymba-1.5b (32 layers, 128
                meta tokens, window 1024; again at batch 2, prompt 1024,
-               16 tokens, past its window) and whisper-large-v3 (32 + 32
-               layers, 1500 encoder frames): float64 decode against
+               16 tokens, past its window, at 8 layers) and
+               whisper-large-v3 (32 + 32 layers, 1500 encoder frames):
+               float64 decode against
                ``forward`` (the decode path's exactness), float32 decode
                against the float64 model, bf16 decode against bf16
                ``forward`` and bf16 against float64 at each family's
@@ -72,13 +73,26 @@ Then
                MoE the router choices bf16 changes; the bf16 times beside
                the byte bound of a decode step, the idle share of decode
                steps and the peak memory;
+  train     -- LM training through ``launch.train``'s code path
+               (``make_trainer``, ``Trainer``, the token pipeline):
+               internvl2-1b at full width (24 layers, d_model 896, vocab
+               151,808; bf16, remat, batch 8 x 256 tokens), 6 steps with
+               a checkpoint at step 3 and a restart from it that must
+               repeat steps 4-6 bitwise, the first loss against
+               ``model.loss`` outside the step, the float32 gradient
+               against float64; granite-moe-1b-a400m's capacity dispatch
+               for 3 steps, its float32 gradient against float64; each
+               step's ms, tokens/s, host reads and peak memory beside the
+               step's FLOP and byte bounds, one step's idle share; then
+               ``examples/factorized_embedding_torch.py`` on the card;
   dist, pod -- the distributed engine and the batched engine's pod path
                at kappa = 1 (NCCL) and kappa = 2 (gloo, two ranks on the
                one card), the pod's requests also through
                ``DecompositionService(mesh=)``, a zero iteration budget,
                and at kappa = 2 the optimizer's ``cross_pod_mean``.
 
-Prints one JSON line per phase, then the
+Prints one JSON line per phase (each also appended, whole, to
+``build/chip_smoke.jsonl``, which a run starts afresh), then the
 ``{"kernels": ...}`` line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises: the script
 then exits non-zero and prints no ``ok`` line.  It imports nothing of JAX.
@@ -94,6 +108,7 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+JSONL = ROOT / "build" / "chip_smoke.jsonl"
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12         # H100 SXM float32 rate outside the tensor cores
 RANK = 16
@@ -155,6 +170,11 @@ FAMILY_RUNS = (
     ("lm_hybrid_long", "hymba-1.5b", 2, 1024, 16),
     ("lm_encdec", "whisper-large-v3", LM_BATCH, LM_PROMPT, LM_GEN),
 )
+# The depth cut of a family run, for the script's time: hymba's second run
+# keeps its width, window and prompt past the window, and its 8 layers
+# keep the global / sliding-window / global / sliding-window / global
+# segments of the 32 (``lm_hybrid`` runs all 32).
+FAMILY_DEPTH = {"lm_hybrid_long": {"num_layers": 8, "global_attn_layers": (0, 3, 7)}}
 # Each family phase's bf16 gates, set from its readings on the H100
 # (PERF.md §6, PR 23; the runs are seeded and gave the same errors every
 # time): bf16 decode against bf16 ``forward`` (the largest ``rel`` of the
@@ -177,9 +197,27 @@ FAMILY_LIMITS = {
     "lm_encdec": {"bf16": 5e-2, "bf16_argmax": 0.85, "f64_median": 3e-2, "f64_argmax": 0.75},
 }
 
+# The train phase: the training launcher's default run (internvl2-1b with
+# its config edits, batch 8 x 256 tokens, bf16, remat "full", the schedule
+# of its 200 default steps) for TRAIN_STEPS steps with a checkpoint every
+# TRAIN_CKPT_EVERY, then a restart from that checkpoint; granite-moe-1b's
+# capacity dispatch for TRAIN_MOE_STEPS steps; each family's float32
+# gradient against float64 at its TRAIN_GRAD_LIMITS (global relative norm).
+TRAIN_ARCH, TRAIN_MOE_ARCH = "internvl2-1b", "granite-moe-1b-a400m"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_SCHEDULE_STEPS = 8, 256, 200
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_MOE_STEPS = 6, 3, 3
+TRAIN_GRAD_LIMITS = {TRAIN_ARCH: 1e-4, TRAIN_MOE_ARCH: 1e-3}
+BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core rate
+
 
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    """Print one JSON line, and append it to ``build/chip_smoke.jsonl``
+    (git ignores it), whole, where the end of the output would cut it."""
+    line = json.dumps(obj)
+    print(line, flush=True)
+    JSONL.parent.mkdir(exist_ok=True)
+    with open(JSONL, "a") as f:
+        f.write(line + "\n")
 
 
 def check(cond, what: str) -> None:
@@ -1467,7 +1505,7 @@ def family_phase(torch, np, clock, ks, dev, name, arch, B, P, G):
     from repro_torch.launch import serve, steps
     from repro_torch.models import get_model
 
-    cfg16 = configs.get_config(arch)
+    cfg16 = dataclasses.replace(configs.get_config(arch), **FAMILY_DEPTH.get(name, {}))
     cfg32 = dataclasses.replace(cfg16, dtype="float32")
     model32, model16 = get_model(cfg32), get_model(cfg16)
     encdec = cfg16.family == "encdec"
@@ -1632,6 +1670,330 @@ def family_phase(torch, np, clock, ks, dev, name, arch, B, P, G):
                          "decode_over_bound": ms / bound_ms,
                          "idle_steps": LM_IDLE_STEPS, "decode_steps_idle": idle},
             "int8_kv": int8, "peak_memory_bytes": peak, "launches": launches}
+
+
+def _tree_pairs(a, b):
+    """The leaf pairs of two trees of one structure."""
+    if isinstance(a, dict):
+        return [p for k in a for p in _tree_pairs(a[k], b[k])]
+    return [(a, b)]
+
+
+def grad_rel(torch, g, ref) -> float:
+    """Global relative norm |g - ref| / |ref| over every leaf (float64)."""
+    pairs = _tree_pairs(g, ref)
+    num = sum(float((x.double() - y.double()).square().sum()) for x, y in pairs)
+    den = sum(float(y.double().square().sum()) for _, y in pairs)
+    return (num / den) ** 0.5
+
+
+def train_bounds(cfg, tokens: int, params) -> dict:
+    """The least time of one train step: 6 N T operations for the forward
+    and backward plus 2 N T for the forward that ``remat`` recomputes, at
+    the card's dense bf16 rate, N the parameters a token meets (of a MoE
+    layer's experts the top k; attention's own products not counted); and
+    the bytes AdamW must move: parameters and gradients (of the
+    parameters' dtype) read, parameters written, both float32 moments read
+    and written."""
+    n = cfg.param_count()
+    active = n - cfg.num_layers * (cfg.num_experts - cfg.num_experts_per_tok) \
+        * 3 * cfg.d_model * cfg.moe_dff if cfg.num_experts else n
+    ops = (6 + (2 if cfg.remat != "none" else 0)) * active * tokens
+    numel = sum(x.numel() for x in _leaves(params))
+    bytes_ = 3 * _nbytes(params) + 4 * 4 * numel
+    flop_ms, byte_ms = ops / BF16_OPS_PER_S * 1e3, bytes_ / HBM_BYTES_PER_S * 1e3
+    return {"active_params": active, "operations": ops, "flop_bound_ms": flop_ms,
+            "adamw_bytes": bytes_,
+            "byte_bound_ms": byte_ms, "bound_ms": max(flop_ms, byte_ms),
+            "bound_by": "operations" if flop_ms >= byte_ms else "bytes"}
+
+
+def step_records(trainer, peaks, tokens) -> dict:
+    """Each step of ``trainer.history`` (loss, CUDA-event ms, tokens/s, wall
+    ms, peak memory) and the trainer's host reads a step: its one read of
+    the loss and gradient norm, the step itself running under
+    ``set_sync_debug_mode("error")``, where any other read raises."""
+    steps = [{"step": r["step"], "loss": r["loss"], "grad_norm": r["grad_norm"],
+              "ms": r.get("device_ms"), "wall_ms": r["time_s"] * 1e3,
+              "tokens_per_s": tokens / (r["device_ms"] / 1e3) if r.get("device_ms") else None,
+              "straggler": r["straggler"], "peak_memory_bytes": pk}
+             for r, pk in zip(trainer.history, peaks)]
+    return {"steps": steps, "host_reads_per_step": trainer.host_reads / len(steps),
+            "step_sync_guard": trainer.sync_guard}
+
+
+@contextlib.contextmanager
+def forced_routing(torch, ids: list):
+    """Inside, the i-th MoE routing takes ``ids[i]`` (B, S, k) as its expert
+    choices, its gates renormalized from its own probabilities at them and
+    its load-balance loss counted from them: the discrete branch of the run
+    that recorded ``ids`` (``routed_experts``), in this run's precision."""
+    from repro_torch.models import mlp
+
+    route = mlp._route
+    choices = iter(ids)
+
+    def forced(cfg, p, x):
+        probs = route(cfg, p, x)[0]
+        expert = next(choices)
+        gate = torch.gather(probs, -1, expert)
+        gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+        counts = torch.zeros((cfg.num_experts,), dtype=torch.float32, device=x.device)
+        counts.index_add_(0, expert.reshape(-1), torch.ones(expert.numel(), device=x.device))
+        aux = cfg.num_experts * torch.sum(probs.mean(dim=(0, 1)) * counts / expert.numel())
+        return probs, gate, expert, aux
+
+    mlp._route = forced
+    try:
+        yield
+    finally:
+        mlp._route = route
+
+
+def step_cost_of_determinism(torch, model, opt_cfg, state, batch) -> dict:
+    """CUDA-event ms of one train step with PyTorch's deterministic kernels
+    and without, in turns (with, without, without, with; each turn the
+    median of 2 steps after one more), on the same state."""
+    from repro_torch.launch import steps
+
+    fns = {"deterministic": steps.make_train_step(model, opt_cfg, deterministic=True),
+           "default": steps.make_train_step(model, opt_cfg, deterministic=False)}
+    out = {"deterministic": [], "default": []}
+    for label in ("deterministic", "default", "default", "deterministic"):
+        out[label].append(cuda_ms(torch, lambda f=fns[label]: f(*state, batch), 2))
+    return out
+
+
+def float32_vs_float64(torch, dev, model, params, batch, arch):
+    """The train step's gradient (``steps.make_grad_fn``, with the step's
+    deterministic kernels) of ``params`` cast to float32 and to float64 on
+    ``batch``, in a float32 model (``float64_compute`` keeps the float64
+    one float64 through); returns the global relative norm of their
+    difference and, for MoE, the share of the router's choices that
+    float32 makes and float64 does not, per layer (forward only: with
+    remat the backward routes each layer again).  A flipped choice moves
+    a token to another expert, a jump in the function that no precision
+    bounds, so a MoE model's gate is float32's gradient on float64's
+    routing (``forced_routing``); the gradient on its own routing is
+    printed beside it."""
+    import dataclasses
+
+    from repro_torch.device import deterministic_algorithms
+    from repro_torch.launch import steps
+    from repro_torch.models import get_model
+
+    model32 = get_model(dataclasses.replace(model.cfg, dtype="float32"))
+    grad_fn = steps.make_grad_fn(model32)
+
+    def grad(p, b):
+        with deterministic_algorithms():
+            return grad_fn(p, b)
+
+    moe = model.cfg.family == "moe"
+    ids32, ids64 = [], []
+    p32 = _to_float(params, torch.float32)
+    g32, m32 = grad(p32, batch)
+    if moe:
+        with torch.no_grad(), routed_experts(ids32), deterministic_algorithms():
+            model32.loss(p32, batch)
+    with float64_compute(torch):
+        p64 = _to_float(params, torch.float64)
+        g64, m64 = grad(p64, batch)
+        if moe:
+            with torch.no_grad(), routed_experts(ids64), deterministic_algorithms():
+                model32.loss(p64, batch)
+        del p64
+    rel = grad_rel(torch, g32, g64)
+    zero = grad_rel(torch, _map_leaves(g32, torch.zeros_like), g64)
+    flips = [expert_flips(torch, a, b, model.cfg.num_experts) for a, b in zip(ids32, ids64)]
+    out = {"grad_rel_norm": rel, "zeros_rel_norm": zero,
+           "loss_float32": float(m32["loss"]), "loss_float64": float(m64["loss"]),
+           "router_choices_changed_by_layer": flips or None}
+    del g32
+    gated = rel
+    if moe:
+        # float32 on float64's routing: one routing a layer, in order, so
+        # without remat (whose backward routes each layer again).
+        plain = get_model(dataclasses.replace(model.cfg, dtype="float32", remat="none"))
+        with forced_routing(torch, ids64), deterministic_algorithms():
+            g_same, _ = steps.make_grad_fn(plain)(p32, batch)
+        gated = out["grad_rel_norm_on_float64_routing"] = grad_rel(torch, g_same, g64)
+        del g_same
+    del p32, g64, ids32, ids64
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    limit = TRAIN_GRAD_LIMITS[arch]
+    check(gated < limit, f"train: {arch} float32 gradient vs float64 {gated}, limit {limit}")
+    return out
+
+
+def make_train(dev, arch, ckpt=None):
+    """``launch.train``'s trainer for ``arch`` with the launcher's defaults
+    (batch, tokens, the schedule of its default steps; parameters from
+    seed 0), checkpointing into ``ckpt`` every TRAIN_CKPT_EVERY steps."""
+    from repro_torch.launch import train
+
+    return train.make_trainer(arch, steps=TRAIN_SCHEDULE_STEPS, batch=TRAIN_BATCH,
+                              seq=TRAIN_SEQ, ckpt=None if ckpt is None else str(ckpt),
+                              ckpt_every=TRAIN_CKPT_EVERY, device=dev)
+
+
+def first_batch(torch, dev, trainer) -> dict:
+    """The first batch of ``trainer``'s pipeline, from a copy of it."""
+    from repro_torch.data import TokenPipeline
+
+    p = trainer.pipeline
+    pipe = TokenPipeline(p.vocab, p.batch, p.seq, seed=p.state.seed)
+    return {k: torch.as_tensor(v, device=dev) for k, v in next(pipe).items()}
+
+
+def train_phase(torch, np, clock, ks, dev):
+    """LM training through ``launch.train``'s code path (``make_trainer``,
+    ``Trainer``, the token pipeline, ``steps.make_train_step``).
+
+    internvl2-1b at full width (the launcher's default arch and run):
+    TRAIN_STEPS steps with a checkpoint at TRAIN_CKPT_EVERY, then a new
+    trainer on that checkpoint alone.  Gates: the restart's losses are the
+    uninterrupted run's bitwise; the first step's loss is ``model.loss`` of
+    the initial parameters outside the step, bitwise; the float32 gradient
+    within TRAIN_GRAD_LIMITS of float64; every loss finite.  Printed: each
+    step's ms (CUDA events), tokens/s, host reads, peak memory; the step's
+    FLOP and byte bounds; one step's idle share under ``torch.profiler``;
+    the step with PyTorch's deterministic kernels and without.
+
+    granite-moe-1b at full width, the MoE capacity dispatch that serving
+    never runs: TRAIN_MOE_STEPS steps, the same numbers, finite losses, the
+    float32 gradient against float64 and the router choices float32
+    changes.  Then ``examples/factorized_embedding_torch.py``'s two runs
+    on the card: both losses fall.  No launch of the port's kernels."""
+    import importlib.util
+    import shutil
+
+    from repro_torch.launch import steps
+
+    cuda = dev.type == "cuda"
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    ckpt = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    reset_launches(ks)
+
+    def peak_hook(peaks):
+        def hook(step):
+            if cuda:
+                peaks.append(torch.cuda.max_memory_allocated(dev))
+                torch.cuda.reset_peak_memory_stats(dev)
+            else:
+                peaks.append(None)
+        return hook
+
+    # -- internvl2-1b: 6 steps, a checkpoint at 3, a restart from it ----------
+    if cuda:
+        torch.cuda.init()   # the memory statistics need the allocator up
+        torch.cuda.reset_peak_memory_stats(dev)
+    tr = make_train(dev, TRAIN_ARCH, ckpt)
+    check(tr.initialize() == "initialized", "train: restored from a stale checkpoint")
+    batch0, params0 = first_batch(torch, dev, tr), tr.params
+    model, cfg = tr.model, tr.model.cfg
+    with torch.no_grad():
+        loss0 = float(model.loss(params0, batch0)[0])
+    peaks = []
+    tr.failure_hook = peak_hook(peaks)
+    t0 = clock.now()
+    hist = tr.run(TRAIN_STEPS, log=lambda msg: None)
+    run_s = clock.now() - t0
+    losses = [r["loss"] for r in hist]
+    check(all(np.isfinite(losses)), f"train: {TRAIN_ARCH} losses {losses}")
+    check(losses[0] == loss0, f"train: the first step's loss {losses[0]} is not "
+                              f"model.loss of the initial parameters {loss0}")
+    check(tr.host_reads == TRAIN_STEPS, f"train: {tr.host_reads} host reads in "
+                                        f"{TRAIN_STEPS} steps")
+    records = step_records(tr, peaks, tokens)
+    bounds = train_bounds(cfg, tokens, tr.params)
+
+    # The restart: the step-3 checkpoint alone, a new trainer on it.
+    tr.ckpt.wait()
+    for name in (f"step_{TRAIN_STEPS}", f"step_{TRAIN_STEPS}.done"):
+        path = ckpt / name
+        shutil.rmtree(path) if path.is_dir() else path.unlink()
+    del tr
+    tr2 = make_train(dev, TRAIN_ARCH, ckpt)
+    t0 = clock.now()
+    check(tr2.initialize() == "restored" and tr2.step == TRAIN_CKPT_EVERY,
+          f"train: the restart did not restore step {TRAIN_CKPT_EVERY}")
+    restore_s = clock.now() - t0
+    again = [r["loss"] for r in tr2.run(TRAIN_STEPS, log=lambda msg: None)]
+    check(again == losses[TRAIN_CKPT_EVERY:],
+          f"train: the restart's losses {again} are not the run's {losses[TRAIN_CKPT_EVERY:]}")
+
+    # One step under the profiler, and the step with and without determinism.
+    idle = device_idle(torch, tr2.train_one, clock) if cuda else None
+    det = (step_cost_of_determinism(torch, model, tr2.opt_cfg, (tr2.params, tr2.opt_state),
+                                    batch0) if cuda else None)
+    del tr2
+    shutil.rmtree(ckpt, ignore_errors=True)
+    if cuda:
+        torch.cuda.empty_cache()
+    grads = float32_vs_float64(torch, dev, model, params0, batch0, TRAIN_ARCH)
+    del params0, batch0
+    if cuda:
+        torch.cuda.empty_cache()
+    vlm = {"arch": TRAIN_ARCH, "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab_size, "padded_vocab": cfg.padded_vocab,
+           "param_count": cfg.param_count(), "dtype": cfg.dtype, "remat": cfg.remat,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, **records, "run_s": run_s,
+           "first_loss_outside_the_step": loss0, "restart_losses": again,
+           "restore_s": restore_s, **bounds, "step_idle": idle,
+           "step_ms_deterministic_vs_default": det, "float32_vs_float64": grads}
+
+    # -- granite-moe-1b: the capacity dispatch in training ----------------------
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    tr = make_train(dev, TRAIN_MOE_ARCH)
+    tr.initialize()
+    batch0, params0 = first_batch(torch, dev, tr), tr.params
+    model, cfg = tr.model, tr.model.cfg
+    peaks = []
+    tr.failure_hook = peak_hook(peaks)
+    hist = tr.run(TRAIN_MOE_STEPS, log=lambda msg: None)
+    losses = [r["loss"] for r in hist]
+    check(all(np.isfinite(losses)), f"train: {TRAIN_MOE_ARCH} losses {losses}")
+    records = step_records(tr, peaks, tokens)
+    bounds = train_bounds(cfg, tokens, tr.params)
+    idle = device_idle(torch, tr.train_one, clock) if cuda else None
+    det = (step_cost_of_determinism(torch, model, tr.opt_cfg, (tr.params, tr.opt_state),
+                                    batch0) if cuda else None)
+    del tr
+    if cuda:
+        torch.cuda.empty_cache()
+    grads = float32_vs_float64(torch, dev, model, params0, batch0, TRAIN_MOE_ARCH)
+    del params0, batch0
+    moe = {"arch": TRAIN_MOE_ARCH, "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "experts": cfg.num_experts, "top_k": cfg.num_experts_per_tok,
+           "param_count": cfg.param_count(), "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           **records, **bounds, "step_idle": idle,
+           "step_ms_deterministic_vs_default": det, "float32_vs_float64": grads}
+
+    # -- the factorized-embedding example on the card ----------------------------
+    spec = importlib.util.spec_from_file_location(
+        "factorized_embedding_torch", ROOT / "examples" / "factorized_embedding_torch.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    t0 = clock.now()
+    rows = example.main(["--device", str(dev)])
+    example_s = clock.now() - t0
+    for row in rows:
+        first, last = np.mean(row["losses"][:5]), np.mean(row["losses"][-5:])
+        check(last < first, f"train: the example's {row['label']} loss {first} -> {last}")
+        row["loss_first5_mean"], row["loss_last5_mean"] = float(first), float(last)
+        row["step_ms_median"] = statistics.median(row.pop("step_s")) * 1e3
+        row["losses"] = [row["losses"][0], row["losses"][-1]]
+
+    launches = dict(ks.LAUNCHES)
+    check(all(n == 0 for n in launches.values()),
+          f"train: the training path launched the port's kernels {launches}")
+    return {"phase": "train", TRAIN_ARCH: vlm, TRAIN_MOE_ARCH: moe,
+            "factorized_embedding_example": {"runs": rows, "wall_s": example_s},
+            "launches": launches}
 
 
 def _map_leaves(tree, fn):
@@ -2137,6 +2499,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     smi = nvidia_smi()
+    JSONL.unlink(missing_ok=True)
 
     # -- device: versions and the kernel build -----------------------------
     t0 = clock.now()
@@ -2642,6 +3005,14 @@ def main() -> int:
         emit(out)
         torch.cuda.empty_cache()
 
+    # -- train: LM training through launch.train, internvl2-1b and granite ------
+    t0 = clock.now()
+    train_out = train_phase(torch, np, clock, ks, dev)
+    train_out["phase_s"] = clock.now() - t0
+    train_out["nvidia_smi"] = smi
+    emit(train_out)
+    torch.cuda.empty_cache()
+
     # -- dist and pod: the mesh paths, kappa = 1 (NCCL) and 2 (gloo, one card) ---
     t0 = clock.now()
     grad_shapes = {"dA": (embed_out["factor_vocab"][0], EMBED_RANK),
@@ -2678,6 +3049,7 @@ def main() -> int:
                       "stream": new_phases["stream"]["launches"],
                       "plan": plan_out["launches"],
                       "embed": embed_out["launches"]["mttkrp_slab"],
+                      "train": train_out["launches"]["mttkrp_slab"],
                       "dist": dist_out["kappa1"]["ranks"][0]["b1e_launches"],
                       "dist_kappa2_ranks": [x["b1e_launches"]
                                             for x in dist_out["kappa2"]["ranks"]]}),

@@ -13,7 +13,9 @@ with ``methods.StreamingCP`` (checkpointed through
 and ``BatchedEngine(mesh=...)`` run across the ranks of a
 ``repro_torch.launch`` mesh.  Their MTTKRP runs through the hand-written
 Hopper kernel in ``csrc/mttkrp_slab.cu`` (the counterpart of the Pallas
-kernel in ``repro/kernels/mttkrp_pallas.py``).
+kernel in ``repro/kernels/mttkrp_pallas.py``).  The LM models of
+``repro_torch.models`` serve through ``launch.serve`` and train through
+``launch.train`` (``runtime.Trainer``).
 
 Entry points take ``device=`` and default to ``"cuda"``; they raise when
 CUDA is asked for and absent.  ``device="cpu"`` runs every kernel's plain

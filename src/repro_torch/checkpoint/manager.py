@@ -9,7 +9,9 @@ Layout:  <dir>/step_<N>/
 
 A tree is nested dicts, lists and tuples whose leaves are numpy arrays,
 torch tensors or numbers; a leaf's path joins its keys and indices with
-"/" (dict keys sorted), e.g. ``factors/0``.
+"/" (dict keys sorted), e.g. ``factors/0``.  numpy has no bfloat16: a
+bfloat16 tensor is stored as its int16 bit pattern, with ``bfloat16`` as
+its dtype in ``meta.json``, and restored bit for bit.
 
 Guarantees:
   * atomicity -- a checkpoint is written to a temporary directory, renamed
@@ -18,7 +20,7 @@ Guarantees:
     when a manager opens the directory.
   * keep-k garbage collection of committed checkpoints.
   * restore onto any device: leaves load on the host and go where the
-    template's leaves live, numpy or a torch device.
+    template's leaves live, numpy or a torch device (or to ``device``).
   * async save: leaves are copied to the host on the caller's thread and
     the files are written on a worker thread.
 """
@@ -73,16 +75,45 @@ def _unflatten(spec, leaves):
     return items if kind == "list" else tuple(items)
 
 
-def _to_host(x) -> np.ndarray:
+def _like(template, by_path: dict, prefix: str = ""):
+    """A tree of ``template``'s structure, its dicts in the template's own
+    key order, whose leaves are ``by_path``'s (keyed as ``_flatten`` keys
+    them).  Code that walks a tree in order (an optimizer's global norm)
+    then sums a restored tree as it summed the saved one."""
+    if isinstance(template, dict):
+        return {k: _like(v, by_path, f"{prefix}{k}/") for k, v in template.items()}
+    if isinstance(template, (list, tuple)):
+        items = [_like(v, by_path, f"{prefix}{i}/") for i, v in enumerate(template)]
+        return items if isinstance(template, list) else tuple(items)
+    return by_path[prefix[:-1]]
+
+
+BF16 = "bfloat16"
+
+
+def _to_host(x) -> tuple[np.ndarray, str]:
+    """A leaf as a host array and the name of its dtype."""
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
-    return np.asarray(x)
+        x = x.detach()
+        if x.dtype == torch.bfloat16:
+            return x.view(torch.int16).cpu().numpy(), BF16
+        x = x.cpu().numpy()
+    else:
+        x = np.asarray(x)
+    return x, str(x.dtype)
 
 
-def _np_dtype(leaf):
-    if isinstance(leaf, torch.Tensor):
-        return torch.empty((), dtype=leaf.dtype).numpy().dtype
-    return np.asarray(leaf).dtype
+def _from_host(a: np.ndarray, dtype: str, template):
+    """A stored leaf in the form of its template leaf: a torch tensor of the
+    template's dtype (on the template's device), else a numpy array."""
+    if isinstance(template, torch.Tensor):
+        x = torch.from_numpy(a)
+        if dtype == BF16:
+            x = x.view(torch.bfloat16)
+        return x.to(template.dtype)
+    if dtype == BF16:
+        a = torch.from_numpy(a).view(torch.bfloat16).float().numpy()
+    return a.astype(np.asarray(template).dtype)
 
 
 class CheckpointManager:
@@ -129,7 +160,8 @@ class CheckpointManager:
         """Snapshot ``tree`` at ``step``; ``extra`` is JSON metadata."""
         self.wait()  # one in-flight save at a time
         paths, leaves, structure = _flatten(tree)
-        host = [_to_host(x) for x in leaves]   # device -> host, on this thread
+        # device -> host, on this thread
+        host, dtypes = zip(*(_to_host(x) for x in leaves)) if leaves else ((), ())
         meta = {
             "format": FORMAT,
             "version": VERSION,
@@ -137,7 +169,7 @@ class CheckpointManager:
             "structure": structure,
             "paths": paths,
             "shapes": [list(a.shape) for a in host],
-            "dtypes": [str(a.dtype) for a in host],
+            "dtypes": list(dtypes),
             "extra": extra or {},
             "time": obs_clock.wall(),   # epoch timestamp, not a duration
         }
@@ -210,15 +242,20 @@ class CheckpointManager:
     def restore_items(self, step: int | None = None) -> tuple[dict, dict]:
         """Template-free restore: ``(dict of path -> host array, extra)``,
         for consumers whose array shapes are part of the checkpointed
-        state (a streaming session's growing nonzero set)."""
+        state (a streaming session's growing nonzero set).  A bfloat16
+        leaf comes back as float32 (exact)."""
         meta, host = self._load_host(step)
-        return dict(zip(meta["paths"], host)), meta.get("extra", {})
+        items = {p: (_from_host(a, dt, np.float32(0)) if dt == BF16 else a)
+                 for p, a, dt in zip(meta["paths"], host, meta["dtypes"])}
+        return items, meta.get("extra", {})
 
-    def restore(self, step: int | None = None, *,
-                template: Any = None) -> tuple[Any, dict]:
+    def restore(self, step: int | None = None, *, template: Any = None,
+                device=None) -> tuple[Any, dict]:
         """Load checkpoint ``step`` (default latest) into ``template``'s
-        structure, shapes and dtypes.  A leaf goes where its template leaf
-        lives: a torch tensor onto that tensor's device, anything else to
+        structure (its dicts in its key order), shapes and dtypes.  A leaf goes where its template leaf
+        lives: a torch tensor onto ``device``, or without it onto that
+        tensor's device (so a template of ``meta`` tensors, such as a
+        model's ``abstract_params()``, takes ``device``), anything else to
         numpy.  Returns ``(tree, extra)``."""
         if template is None:
             raise ValueError("restore requires a template tree")
@@ -230,15 +267,13 @@ class CheckpointManager:
                 f"checkpoint/template structure mismatch; differing: "
                 f"{sorted(differing)[:5]}...")
         out = []
-        for a, t in zip(host, t_leaves):
+        for a, dt, t in zip(host, meta["dtypes"], t_leaves):
             if tuple(a.shape) != tuple(np.shape(t)):
                 raise ValueError(
                     f"shape mismatch {a.shape} vs {tuple(np.shape(t))} on "
                     f"restore")
-            a = a.astype(_np_dtype(t))
+            x = _from_host(a, dt, t)
             if isinstance(t, torch.Tensor):
-                out.append(torch.as_tensor(a, device=t.device))
-            else:
-                out.append(a)
-        _, _, structure = _flatten(template)
-        return _unflatten(structure, iter(out)), meta.get("extra", {})
+                x = x.to(t.device if device is None else device)
+            out.append(x)
+        return _like(template, dict(zip(t_paths, out))), meta.get("extra", {})

@@ -1,5 +1,6 @@
-"""Tensor input for the port: the FROSTT ``.tns`` reader and writer.
-(The reference's LM token pipeline is not ported yet.)"""
+"""Data for the port: the LM token pipeline (``PipelineState``,
+``TokenPipeline``) and the FROSTT ``.tns`` reader and writer."""
+from .pipeline import PipelineState, TokenPipeline
 from .tns import read_tns, write_tns
 
-__all__ = ["read_tns", "write_tns"]
+__all__ = ["PipelineState", "TokenPipeline", "read_tns", "write_tns"]

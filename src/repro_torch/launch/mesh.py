@@ -28,8 +28,9 @@ tensor to the host and back around a gloo collective, explicitly, and
 counts the copies (``stats["staged_copies"]``); the sweep and the kernel
 stay on the card.  gloo also blocks the host for the collective's
 duration, which ``stats["wait_s"]`` adds up (host clock, every backend).
-The reference's TPU hardware table and production meshes belong to its
-LM subsystem and are not ported.
+``make_host_mesh`` is the trainer's 1-D mesh named ``data``.  The
+reference's TPU hardware table and production meshes (16 x 16 and
+2 x 16 x 16 TPU meshes) are not ported.
 """
 from __future__ import annotations
 
@@ -80,6 +81,10 @@ class Mesh:
     @property
     def axis_names(self) -> tuple[str]:
         return (self.axis_name,)
+
+    @property
+    def axis_sizes(self) -> tuple[int]:
+        return (self.size,)
 
     @property
     def ranks(self) -> list[int]:
@@ -196,6 +201,14 @@ def make_batch_mesh(num_devices: int | None = None, *, device="cuda") -> Mesh:
         num_devices = (dist.get_world_size()
                        if dist.is_available() and dist.is_initialized() else 1)
     return make_mesh((int(num_devices),), (BATCH_AXIS,), device=device)
+
+
+def make_host_mesh(*, device="cuda") -> Mesh:
+    """The trainer's mesh (the reference's ``make_host_mesh`` default): 1-D
+    over every rank of the process group (one rank without a group), named
+    ``data``."""
+    world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    return make_mesh((world,), ("data",), device=device)
 
 
 def _rank_device(rank: int, device) -> torch.device:

@@ -17,12 +17,11 @@ CUDA events on the card and the host clock on the CPU.
 from __future__ import annotations
 
 import argparse
-import contextlib
 
 import torch
 
 from ..configs import ARCHS, get_config, reduce_config
-from ..device import resolve_device
+from ..device import no_host_sync, resolve_device
 from ..models import get_model
 from ..obs import clock as obs_clock
 from ..obs import health as obs_health
@@ -41,20 +40,6 @@ def _mark(dev):
 
 def _ms(a, b) -> float:
     return a.elapsed_time(b) if isinstance(a, torch.cuda.Event) else (b - a) * 1e3
-
-
-@contextlib.contextmanager
-def no_host_sync(dev):
-    """On the card, any operation that waits for the device raises inside."""
-    if dev.type != "cuda":
-        yield
-        return
-    prev = torch.cuda.get_sync_debug_mode()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        yield
-    finally:
-        torch.cuda.set_sync_debug_mode(prev)
 
 
 def generate(model, params, prompts, gen: int, *, quant_kv: bool = False,

@@ -1,5 +1,5 @@
 """Shared model machinery (port of ``repro.models.common``): parameter
-specs, norms, RoPE, losses.
+specs, logical-axis sharding rules, norms, RoPE, losses.
 
 Parameters are described ONCE as ``PSpec`` trees (shape + logical axes +
 init), nested dicts with ``PSpec`` leaves; ``build_params`` draws tensors
@@ -8,18 +8,23 @@ from an explicit ``torch.Generator`` with the reference's distributions
 the reference's arrays through ``repro_torch.convert``),
 ``abstract_params`` gives shape-and-dtype tensors on the ``meta`` device
 (the dry-run counterpart of ``jax.ShapeDtypeStruct``), ``logical_axes``
-the matching axes tree.  The logical axes stay metadata: the reference's
-rules that resolve them to mesh axes (``set_rules``, ``to_pspec``,
-``resolve_pspec``, ``constrain``) wait for the port of
-``launch/shardings.py``.
+the matching axes tree.  ``set_rules``, ``get_rules``, ``reset_rules``,
+``to_pspec`` and ``resolve_pspec`` resolve logical axes to mesh axes as
+the reference does (``launch/shardings.py`` applies them), over a mesh
+described by its axis names and sizes; a spec is a tuple with one entry
+per dim (a mesh axis name, a tuple of names, or None), the reference's
+``PartitionSpec`` as a tuple.  ``constrain`` is the identity: the port is
+multi-controller, and no rank holds a global array to constrain.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from collections.abc import Mapping
 from typing import Any
 
 import torch
+import torch.utils.checkpoint
 
 from ..device import resolve_device
 
@@ -113,6 +118,87 @@ def logical_axes(specs):
 
 
 # ---------------------------------------------------------------------------
+# Logical-axis sharding rules
+# ---------------------------------------------------------------------------
+
+# Default logical -> mesh translation; launch/shardings.py may override via
+# set_rules().  Tuples mean "sharded over multiple mesh axes".
+_DEFAULT_RULES: dict[str, Any] = {
+    "batch": ("pod", "data"),
+    "fsdp": "data",        # weight embed-dim sharding (ZeRO-3)
+    "tensor": "model",     # TP: heads / d_ff / vocab
+    "experts": "model",
+    "seq": None,           # set to 'data' for context-parallel decode
+    "seq_act": None,       # set to 'model' for Megatron-SP residual stream
+    "kv_heads": None,      # set to 'model' for TP-sharded KV caches
+    "kv_hd": None,         # fallback when kv head count doesn't divide
+    "layers": None,
+    "vocab": "model",
+}
+_rules = dict(_DEFAULT_RULES)
+
+
+def set_rules(**kw):
+    _rules.update(kw)
+
+
+def get_rules() -> dict:
+    return dict(_rules)
+
+
+def reset_rules():
+    _rules.clear()
+    _rules.update(_DEFAULT_RULES)
+
+
+def mesh_shape(mesh) -> dict[str, int]:
+    """A mesh's axis sizes by name.  ``mesh`` is a mapping of them, or an
+    object with ``axis_names`` and ``axis_sizes`` (``launch.mesh.Mesh``)."""
+    if isinstance(mesh, Mapping):
+        return {str(k): int(v) for k, v in mesh.items()}
+    return dict(zip(mesh.axis_names, (int(n) for n in mesh.axis_sizes)))
+
+
+def to_pspec(axes: tuple, mesh=None) -> tuple:
+    """The rules' mesh axes for ``axes``, one entry per dim, unchecked
+    against any mesh (``resolve_pspec`` checks)."""
+    return tuple(_rules.get(a) if isinstance(a, str) else None for a in axes)
+
+
+def resolve_pspec(axes: tuple, shape: tuple, mesh) -> tuple:
+    """The spec with divisibility + axis-existence checks per dim.
+
+    A mesh axis may appear at most once in a spec, so logical axes are
+    resolved left-to-right and later dims drop any mesh axis already
+    claimed (e.g. MoE ('experts','fsdp','tensor') -> ('model','data',None):
+    the expert dim wins the model axis; per-expert ff stays unsharded)."""
+    avail = mesh_shape(mesh)
+    used: set = set()
+    out = []
+    for dim, a in zip(shape, axes):
+        r = _rules.get(a) if isinstance(a, str) else None
+        if r is None:
+            out.append(None)
+            continue
+        axes_tuple = (r,) if isinstance(r, str) else tuple(r)
+        axes_tuple = tuple(x for x in axes_tuple if x in avail and x not in used)
+        size = math.prod(avail[x] for x in axes_tuple)
+        if axes_tuple and dim % size == 0:
+            out.append(axes_tuple if len(axes_tuple) > 1 else axes_tuple[0])
+            used.update(axes_tuple)
+        else:
+            out.append(None)
+    return tuple(out)
+
+
+def constrain(x, *axes):
+    """The identity.  The reference pins an activation's sharding inside
+    its one global program; each rank of the port computes on its own
+    shard, so there is nothing to constrain."""
+    return x
+
+
+# ---------------------------------------------------------------------------
 # Layers
 # ---------------------------------------------------------------------------
 
@@ -182,6 +268,38 @@ def softmax_cross_entropy(logits, labels, *, z_loss: float = 1e-4, mask=None):
     if mask is not None:
         valid = valid * mask.float()
     return (ce * valid).sum() / torch.clamp(valid.sum(), min=1.0)
+
+
+def records_grad(*trees) -> bool:
+    """True when autograd records a graph through a tensor of ``trees``
+    (nested dicts, lists and tuples; other leaves are ignored)."""
+    if not torch.is_grad_enabled():
+        return False
+    stack = list(trees)
+    while stack:
+        t = stack.pop()
+        if isinstance(t, dict):
+            stack.extend(t.values())
+        elif isinstance(t, (list, tuple)):
+            stack.extend(t)
+        elif isinstance(t, torch.Tensor) and t.requires_grad:
+            return True
+    return False
+
+
+def remat_layer(cfg, *trees) -> bool:
+    """Checkpoint a layer over ``trees``: ``cfg.remat`` asks for it
+    (``full`` and ``dots`` alike) and autograd records a graph through
+    them; serving never does."""
+    return cfg.remat != "none" and records_grad(*trees)
+
+
+def remat(fn, *args):
+    """``fn(*args)`` keeping none of its intermediates for the backward,
+    which recomputes them (``jax.checkpoint``).  The models draw no random
+    numbers, so no RNG state is kept for the recomputation."""
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                             preserve_rng_state=False)
 
 
 def pad_vocab(v: int, multiple: int = 256) -> int:

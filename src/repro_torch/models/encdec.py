@@ -7,7 +7,10 @@ sinusoidal on both sides.
 
 Decoder = self-attn (causal, cached) + cross-attn (encoder KV, computed
 once at prefill) + MLP.  Both stacks are looped over in Python (the
-reference scans them; a scan changes nothing in a forward pass).  The
+reference scans them; a scan changes nothing in a forward pass).  While
+autograd records a graph and ``cfg.remat`` is not ``none``, each encoder
+layer and each cache-free decoder layer runs under ``common.remat``, as
+the reference checkpoints its scan bodies.  The
 cache is updated in place, and its ``pos`` is a host ``int``.  With
 ``quant_kv`` the decoder's self-attention gets its cache's scales too
 (the reference hands it only ``k`` and ``v``, so its int8 buffers would
@@ -22,8 +25,8 @@ from . import attention as attn_mod
 from . import mlp as mlp_mod
 from .base import ModelConfig
 from .common import (PSpec, abstract_params, apply_norm, build_params,
-                     logical_axes, norm_specs, softmax_cross_entropy,
-                     stack_specs)
+                     logical_axes, norm_specs, remat, remat_layer,
+                     softmax_cross_entropy, stack_specs)
 from .lm import _sinusoid, _unstack
 
 
@@ -85,11 +88,18 @@ class EncDec:
         positions = torch.arange(x.shape[1], device=x.device)
         x = x + _sinusoid(positions, cfg.d_model).to(x.dtype)
         for p in _unstack(params["enc"], cfg.enc_layers):
-            a, _ = attn_mod.attention(
-                cfg, p["attn"], apply_norm(cfg.norm, x, p["ln1"]), causal=False)
-            x = x + a
-            x = x + mlp_mod.mlp_apply(cfg, p["mlp"], apply_norm(cfg.norm, x, p["ln2"]))
+            if remat_layer(cfg, x, p):
+                x = remat(self._enc_layer, p, x)
+            else:
+                x = self._enc_layer(p, x)
         return apply_norm(cfg.norm, x, params["enc_norm"])
+
+    def _enc_layer(self, p, x):
+        cfg = self.cfg
+        a, _ = attn_mod.attention(
+            cfg, p["attn"], apply_norm(cfg.norm, x, p["ln1"]), causal=False)
+        x = x + a
+        return x + mlp_mod.mlp_apply(cfg, p["mlp"], apply_norm(cfg.norm, x, p["ln2"]))
 
     # -- decoder ------------------------------------------------------------
 
@@ -111,6 +121,11 @@ class EncDec:
         h = h + xa
         return h + mlp_mod.mlp_apply(cfg, p["mlp"], apply_norm(cfg.norm, h, p["ln2"]))
 
+    def _dec_train_layer(self, p, h, enc_out):
+        """A cache-free decoder layer (``forward``, the loss)."""
+        return self._dec_layer(p, h, self_cache=None, cross_kv=None, pos=None,
+                               enc_out=enc_out)
+
     def _run_decoder(self, params, x, *, cache=None, enc_out=None):
         """Returns (x, cache | None); ``cache`` is updated in place
         (self-attention buffers and ``pos``) and returned."""
@@ -118,8 +133,10 @@ class EncDec:
         p_layers = _unstack(params["dec"], L)
         if cache is None:
             for p in p_layers:
-                x = self._dec_layer(p, x, self_cache=None, cross_kv=None, pos=None,
-                                    enc_out=enc_out)
+                if remat_layer(self.cfg, x, p, enc_out):
+                    x = remat(self._dec_train_layer, p, x, enc_out)
+                else:
+                    x = self._dec_train_layer(p, x, enc_out)
             return x, None
         pos = cache["pos"]
         for p, sc, xk, xv in zip(p_layers, _unstack(cache["self"], L),
@@ -148,8 +165,8 @@ class EncDec:
                                                     device=x.device)
 
     def loss(self, params, batch):
-        """The reference's loss, its value only (training waits for
-        ``launch/steps.make_train_step``)."""
+        """The reference's loss, the decoder's cross-entropy with its
+        z-loss; returns ``(loss, {"ce", "aux", "loss"})``."""
         logits, aux = self.forward(params, batch["tokens"], batch["encoder_embeds"])
         ce = softmax_cross_entropy(logits, batch["labels"])
         return ce, {"ce": ce, "aux": aux, "loss": ce}

@@ -13,13 +13,19 @@ caches.  ``LM`` runs every decoder-only family (``dense``, ``vlm``,
 The parameter tree is the reference's: a stacked segment keeps its
 leading layer axis, so ``repro_torch.convert.params_from_reference``
 carries a model's parameters unchanged.  ``_run_segments`` loops over the
-layers' views in Python; the reference's ``lax.scan`` and ``remat``
-change nothing in a forward pass, so ``scan_layers`` and ``remat`` are
-not read here.  The cache is updated in place (``attention.py``).
+layers' views in Python; the reference's ``lax.scan`` changes nothing in
+a forward pass, so ``scan_layers`` is not read here.  ``remat`` is read
+only while autograd records a graph (training): then each layer of a
+cache-free pass runs under ``common.remat``, a per-layer activation
+checkpoint, for ``full`` and ``dots`` alike, and each chunk of the
+chunked cross-entropy is checkpointed too, as the reference's are.  The
+values are those of a plain pass; only the memory differs.  The cache is
+updated in place (``attention.py``).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any
 
@@ -30,8 +36,8 @@ from . import blocks as blk
 from . import factorized_embed as fe
 from .base import ModelConfig
 from .common import (PSpec, abstract_params, apply_norm, build_params,
-                     logical_axes, norm_specs, softmax_cross_entropy,
-                     stack_specs)
+                     logical_axes, norm_specs, records_grad, remat, remat_layer,
+                     softmax_cross_entropy, stack_specs)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -193,8 +199,14 @@ class LM:
             else:
                 p_layers, c_layers = [p_seg], [c_seg]
             for p_li, c_li in zip(p_layers, c_layers):
-                x, _, a = blk.block_apply(cfg, seg.kind, p_li, x, cache=c_li, pos=pos,
-                                          window=seg.window, q0=q0, train=train)
+                if c_li is None and remat_layer(cfg, x, p_li):
+                    x, _, a = remat(functools.partial(
+                        blk.block_apply, cfg, seg.kind, window=seg.window, q0=q0,
+                        train=train), p_li, x)
+                else:
+                    x, _, a = blk.block_apply(cfg, seg.kind, p_li, x, cache=c_li,
+                                              pos=pos, window=seg.window, q0=q0,
+                                              train=train)
                 if a is not None:
                     aux_total = aux_total + a
         if caches is not None:
@@ -217,11 +229,14 @@ class LM:
         return logits[:, n_prefix:], aux
 
     def loss(self, params, batch) -> tuple[torch.Tensor, dict]:
-        """The reference's loss, its value only (training waits for
-        ``launch/steps.make_train_step``)."""
+        """The reference's loss: the cross-entropy with its z-loss, plus
+        0.01 x the blocks' auxiliary (MoE load-balance) loss; returns
+        ``(loss, {"ce", "aux", "loss"})``.  ``launch.steps`` differentiates
+        it."""
         cfg = self.cfg
         if cfg.loss_chunk:
-            # chunked CE: never materializes the full (B, S, V) f32 logits
+            # chunked CE: never materializes the full (B, S, V) f32 logits;
+            # per-chunk logits are rematerialized in the backward
             x, n_prefix = self._embed(params, batch["tokens"],
                                       batch.get("prefix_embeds"))
             x, _, aux = self._run_segments(params, x, train=True)
@@ -232,18 +247,24 @@ class LM:
             nc = -(-S // C)
             x = torch.nn.functional.pad(x, (0, 0, 0, nc * C - S))
             labels = torch.nn.functional.pad(labels, (0, nc * C - S), value=-1)
-            ce_sum = torch.zeros((), dtype=torch.float32, device=x.device)
-            n = torch.zeros((), dtype=torch.float32, device=x.device)
-            for c in range(nc):
-                xch, lch = x[:, c * C:(c + 1) * C], labels[:, c * C:(c + 1) * C]
+
+            def chunk_ce(xch, lch):
                 logits = self._logits(params, xch).float()
                 lse = torch.logsumexp(logits, dim=-1)
                 safe = torch.clamp(lch, min=0).long()
                 ll = torch.gather(logits, -1, safe[..., None])[..., 0]
                 ce_i = (lse - ll) + 1e-4 * lse**2
                 valid = (lch >= 0).float()
-                ce_sum = ce_sum + (ce_i * valid).sum()
-                n = n + valid.sum()
+                return (ce_i * valid).sum(), valid.sum()
+
+            record = records_grad(x, params)
+            ce_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+            n = torch.zeros((), dtype=torch.float32, device=x.device)
+            for c in range(nc):
+                xch, lch = x[:, c * C:(c + 1) * C], labels[:, c * C:(c + 1) * C]
+                s_c, n_c = remat(chunk_ce, xch, lch) if record else chunk_ce(xch, lch)
+                ce_sum = ce_sum + s_c
+                n = n + n_c
             ce = ce_sum / torch.clamp(n, min=1.0)
             loss = ce + 0.01 * aux
             return loss, {"ce": ce, "aux": aux, "loss": loss}

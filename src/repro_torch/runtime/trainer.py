@@ -1,5 +1,27 @@
-"""Decomposition front door and straggler monitoring (port of
-``repro.runtime.trainer``: ``StragglerMonitor`` and ``ALSRunner``).
+"""Training orchestrator, decomposition front door and straggler
+monitoring (port of ``repro.runtime.trainer``: ``Trainer``,
+``StragglerMonitor`` and ``ALSRunner``).
+
+``Trainer`` trains an LM of ``repro_torch.models`` on a token pipeline.
+Fault model, as the reference's:
+  * preemption/crash -- every state that matters (params, optimizer,
+    data-pipeline cursor, step) is checkpointed atomically; ``run()``
+    begins by restoring the latest committed checkpoint, so a restarted
+    job continues bit-identically (deterministic pipeline, deterministic
+    step: ``launch.steps``).
+  * stragglers -- per-step wall time feeds a ``StragglerMonitor``.
+  * elastic scaling -- the checkpoint is host numpy, written once (by
+    rank 0: every rank holds the same parameters), and restores onto a
+    mesh of any size; each rank then takes its own slice of the pipeline.
+The mesh is 1-D over ``torch.distributed`` ranks (``launch.make_host_mesh``,
+axis ``data``): each rank holds the whole parameter and optimizer state,
+takes its slice of the global batch, and the step averages gradients
+over the ranks.  The reference shards the parameters over ``data`` as
+well (ZeRO-3); ``p_shard`` holds those specs, which the port does not
+execute.  One host read a step, of the loss and the gradient norm
+together; on the card the step itself runs under
+``set_sync_debug_mode("error")`` (unless the mesh stages its collectives
+through the host), so any other read in it raises.
 
 ``ALSRunner`` serves decompositions through the batched service
 (``mode="batched"``, the default) or one request at a time through the
@@ -10,19 +32,25 @@ window-function cache hit/miss delta (``sweep_cache_stats`` /
 ``batched_cache_stats``), so a straggler caused by a cache miss (a new
 bucket or window class: "retrace") is told apart from one on a warm
 class ("contention").  Entry points default to ``device="cuda"`` and
-``backend="slab"``.  The reference's LM ``Trainer`` is not ported yet.
+``backend="slab"``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable
 
 import numpy as np
 
+import torch
+
+from .. import optim
 from ..checkpoint.manager import CheckpointManager
 from ..core.coo import SparseTensor
 from ..core.cpd import CPDResult
-from ..device import resolve_device
+from ..device import no_host_sync, resolve_device
+from ..launch import shardings as shd
+from ..launch import steps as steps_mod
 from ..obs import clock as obs_clock
 
 
@@ -217,3 +245,133 @@ class ALSRunner:
 
     def flush(self) -> int:
         return self.service.drain() if self.service else 0
+
+
+class Trainer:
+    """Trains ``model`` on ``pipeline`` over ``mesh`` (a ``launch.Mesh``
+    whose ranks each take their slice of the batch: the pipeline's
+    ``process_index`` and ``process_count`` must be the mesh's rank and
+    size).  ``failure_hook(step)`` runs after every step and may raise."""
+
+    def __init__(self, model, *, mesh, pipeline, opt_cfg=None,
+                 ckpt_dir: str | None = None, ckpt_every: int = 50,
+                 keep: int = 3, microbatch: int = 1,
+                 failure_hook: Callable[[int], None] | None = None):
+        self.model = model
+        self.mesh = mesh
+        self.device = mesh.device
+        self.pipeline = pipeline
+        self.opt_cfg = opt_cfg or optim.AdamWConfig()
+        self.ckpt = CheckpointManager(ckpt_dir, keep=keep) if ckpt_dir else None
+        self.ckpt_every = ckpt_every
+        self.monitor = StragglerMonitor()
+        self.failure_hook = failure_hook
+        self.step = 0
+        self.history: list[dict] = []
+        self.host_reads = 0
+
+        self.p_shard = shd.param_shardings(model, mesh)
+        self.o_shard = shd.opt_state_shardings(self.p_shard, mesh)
+        self.b_shard = shd.batch_shardings(
+            {"tokens": torch.empty((pipeline.batch, pipeline.seq), device="meta")}, mesh)
+        if self.b_shard["tokens"][0] is None:
+            raise ValueError(f"the batch rule shards no global batch of "
+                             f"{pipeline.batch} over the mesh axes "
+                             f"{dict(zip(mesh.axis_names, mesh.axis_sizes))}")
+        if (pipeline.process_index, pipeline.process_count) != (mesh.rank, mesh.size):
+            raise ValueError(
+                f"the pipeline slices the batch for rank {pipeline.process_index} "
+                f"of {pipeline.process_count}, the mesh is rank {mesh.rank} of "
+                f"{mesh.size}")
+        self._step_fn = steps_mod.make_train_step(model, self.opt_cfg,
+                                                  microbatch=microbatch, mesh=mesh)
+        # A gloo collective stages CUDA tensors through the host: a read.
+        self.sync_guard = mesh.group is None or mesh.backend != "gloo"
+        self.params = None
+        self.opt_state = None
+
+    # -- state --------------------------------------------------------------
+
+    def initialize(self, seed: int = 0):
+        """Fresh init or restore-from-latest (fault-tolerant entry)."""
+        if self.ckpt and self.ckpt.latest_step() is not None:
+            abstract = self.model.abstract_params()
+            template = {"params": abstract, "opt": optim.init_state(abstract)}
+            state, extra = self.ckpt.restore(template=template, device=self.device)
+            self.params, self.opt_state = state["params"], state["opt"]
+            self.step = int(extra["step"])
+            self.pipeline.restore(extra["pipeline"])
+            return "restored"
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.params = self.model.init(gen, self.device)
+        self.opt_state = optim.init_state(self.params)
+        return "initialized"
+
+    def save(self, block: bool = False):
+        """Checkpoint the state at ``self.step`` (rank 0 writes; the other
+        ranks hold the same state)."""
+        if not self.ckpt or self.mesh.rank != 0:
+            return
+        self.ckpt.save(
+            self.step,
+            {"params": self.params, "opt": self.opt_state},
+            extra={"step": self.step, "pipeline": self.pipeline.snapshot()},
+            block=block,
+        )
+
+    # -- loop ----------------------------------------------------------------
+
+    def _mark(self):
+        if self.device.type != "cuda":
+            return None
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def train_one(self) -> dict:
+        """One step on the pipeline's next batch; returns its record.  The
+        old parameter and optimizer trees are dropped once the new ones
+        exist (the reference donates them)."""
+        batch = {k: torch.as_tensor(v, device=self.device)
+                 for k, v in next(self.pipeline).items()}
+        guard = no_host_sync(self.device) if self.sync_guard else contextlib.nullcontext()
+        t0 = obs_clock.now()
+        start = self._mark()
+        with guard:
+            self.params, self.opt_state, metrics = self._step_fn(
+                self.params, self.opt_state, batch)
+            end = self._mark()
+        loss, gnorm = torch.stack([metrics["loss"].float(),
+                                   metrics["grad_norm"].float()]).tolist()
+        self.host_reads += 1
+        dt = obs_clock.now() - t0
+        self.step += 1
+        rec = {"step": self.step, "loss": loss, "grad_norm": gnorm, "time_s": dt,
+               "straggler": self.monitor.observe(self.step, dt)}
+        if start is not None:
+            rec["device_ms"] = start.elapsed_time(end)
+        self.history.append(rec)
+        return rec
+
+    def run(self, num_steps: int, *, log_every: int = 10,
+            log: Callable[[str], None] = print) -> list[dict]:
+        """Train until step ``num_steps``; returns this call's records
+        (step, loss, grad_norm, time_s, straggler; device_ms on the card)."""
+        if self.params is None:
+            mode = self.initialize()
+            log(f"[trainer] {mode} at step {self.step}")
+        history = []
+        while self.step < num_steps:
+            rec = self.train_one()
+            history.append(rec)
+            if self.step % log_every == 0:
+                log(f"[trainer] step {rec['step']:5d} "
+                    f"loss {rec['loss']:.4f} ({rec['time_s']*1e3:.0f} ms)"
+                    + (" STRAGGLER" if rec["straggler"] else ""))
+            if self.ckpt and self.step % self.ckpt_every == 0:
+                self.save()
+            if self.failure_hook:
+                self.failure_hook(self.step)   # may raise (tests)
+        if self.ckpt:
+            self.save(block=True)
+        return history

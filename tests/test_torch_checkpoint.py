@@ -141,3 +141,34 @@ def test_other_format_version_is_refused(tmp_path):
     meta_path.write_text(json.dumps(meta))
     with pytest.raises(ValueError, match="version"):
         m.restore_items()
+
+
+def test_bfloat16_leaves_round_trip_bit_for_bit(tmp_path):
+    """numpy has no bfloat16: such a leaf is stored as its bits (C5)."""
+    gen = torch.Generator().manual_seed(0)
+    t = {"w": torch.randn(3, 5, generator=gen).to(torch.bfloat16),
+         "mu": torch.randn(3, 5, generator=gen), "step": torch.tensor(4, dtype=torch.int32)}
+    m = CheckpointManager(tmp_path, async_save=False)
+    m.save(1, t)
+    with open(tmp_path / "step_1" / "meta.json") as f:
+        assert json.load(f)["dtypes"] == ["float32", "int32", "bfloat16"]
+    out, _ = m.restore(template=t)
+    for k in t:
+        assert out[k].dtype == t[k].dtype and torch.equal(out[k], t[k]), k
+    # onto a template of meta tensors (a model's abstract parameters)
+    meta = {k: torch.empty(v.shape, dtype=v.dtype, device="meta") for k, v in t.items()}
+    out, _ = m.restore(template=meta, device="cpu")
+    assert all(out[k].device.type == "cpu" and torch.equal(out[k], t[k]) for k in t)
+    items, _ = m.restore_items()
+    assert items["w"].dtype == np.float32
+    np.testing.assert_array_equal(items["w"], t["w"].float().numpy())
+
+
+def test_restore_keeps_the_template_key_order(tmp_path):
+    """A restored tree walks in its template's order, as the saved one did
+    (the optimizer's global norm sums its leaves in that order)."""
+    t = {"z": np.ones(2, np.float32), "a": {"y": np.zeros(1), "b": np.ones(1)}}
+    m = CheckpointManager(tmp_path, async_save=False)
+    m.save(1, t)
+    out, _ = m.restore(template=t)
+    assert list(out) == ["z", "a"] and list(out["a"]) == ["y", "b"]

@@ -3,7 +3,8 @@
 ``repro``, nor ``msgpack`` (absent on the card's machine; the port's
 checkpoints are npz + JSON).  Its ``core`` and ``kernels`` namespaces
 export the reference's names, with the one mapping of
-``repro_torch.kernels.FROM_REFERENCE``; the quickstart runs on the CPU."""
+``repro_torch.kernels.FROM_REFERENCE``, and its ``data`` and ``runtime``
+namespaces the reference's names; the quickstart runs on the CPU."""
 import ast
 import os
 import subprocess
@@ -15,7 +16,9 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 EXAMPLES = [ROOT / "examples" / "quickstart_torch.py",
             ROOT / "examples" / "decompose_tensor_torch.py",
-            ROOT / "examples" / "serve_lm_torch.py"]
+            ROOT / "examples" / "serve_lm_torch.py",
+            ROOT / "examples" / "train_lm_torch.py",
+            ROOT / "examples" / "factorized_embedding_torch.py"]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"] + EXAMPLES
 FORBIDDEN = ("jax", "jaxlib", "repro", "msgpack")
@@ -49,7 +52,9 @@ def test_import_leaves_jax_out():
             "repro_torch.models.mlp, repro_torch.models.blocks, "
             "repro_torch.models.lm, repro_torch.models.ssm, "
             "repro_torch.models.encdec, repro_torch.launch.steps, "
-            "repro_torch.launch.serve; "
+            "repro_torch.launch.serve, repro_torch.launch.train, "
+            "repro_torch.launch.shardings, repro_torch.data.pipeline, "
+            "repro_torch.runtime.trainer; "
             f"bad = sorted(m for m in sys.modules "
             f"if m.split('.')[0] in {FORBIDDEN!r}); "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -78,6 +83,20 @@ def test_namespaces_export_the_reference_names():
     assert repro_torch.kernels.__all__ == mapped
     assert len(mapped) == 10 and "mttkrp_slab" in mapped
     for pkg in (repro_torch.core, repro_torch.kernels):
+        for name in pkg.__all__:
+            assert getattr(pkg, name) is not None, name
+
+
+def test_data_and_runtime_export_the_reference_names():
+    import repro.data
+    import repro.runtime
+
+    import repro_torch.data
+    import repro_torch.runtime
+
+    assert repro_torch.data.__all__ == repro.data.__all__
+    assert repro_torch.runtime.__all__ == repro.runtime.__all__
+    for pkg in (repro_torch.data, repro_torch.runtime):
         for name in pkg.__all__:
             assert getattr(pkg, name) is not None, name
 
