@@ -85,6 +85,13 @@ Then
                step's ms, tokens/s, host reads and peak memory beside the
                step's FLOP and byte bounds, one step's idle share; then
                ``examples/factorized_embedding_torch.py`` on the card;
+  dryrun    -- the dry run (``repro_torch.launch.dryrun``) held to the
+               card: the H100 table's SM count and memory; the train
+               phase's step (internvl2-1b, 8 x 256) and the lm phase's
+               bf16 decode step (qwen1.5-4b, batch 8, 192 positions)
+               counted by ``OpCounter`` on ``meta`` and on the card, FLOPs
+               and bytes equal, the card's peak memory against the counted
+               peak, the counted bound beside the step's ms;
   dist, pod -- the distributed engine and the batched engine's pod path
                at kappa = 1 (NCCL) and kappa = 2 (gloo, two ranks on the
                one card), the pod's requests also through
@@ -109,7 +116,6 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 JSONL = ROOT / "build" / "chip_smoke.jsonl"
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12         # H100 SXM float32 rate outside the tensor cores
 RANK = 16
 TIMED_LAUNCHES = 21
@@ -207,7 +213,10 @@ TRAIN_ARCH, TRAIN_MOE_ARCH = "internvl2-1b", "granite-moe-1b-a400m"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_SCHEDULE_STEPS = 8, 256, 200
 TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_MOE_STEPS = 6, 3, 3
 TRAIN_GRAD_LIMITS = {TRAIN_ARCH: 1e-4, TRAIN_MOE_ARCH: 1e-3}
-BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core rate
+
+# The dryrun phase: the card's peak memory over the counted train step
+# against the dry run's peak live bytes, within these ratios.
+DRYRUN_MEMORY_RATIO = (0.75, 1.33)
 
 
 def emit(obj) -> None:
@@ -218,6 +227,15 @@ def emit(obj) -> None:
     JSONL.parent.mkdir(exist_ok=True)
     with open(JSONL, "a") as f:
         f.write(line + "\n")
+
+
+def hw_peak(key: str) -> float:
+    """A data-sheet peak of the H100 SXM at 700 W (``hbm_bw``,
+    ``peak_flops_bf16``, ...) from the port's one table,
+    ``repro_torch.launch.mesh.HW``."""
+    from repro_torch.launch.mesh import HW
+
+    return HW[key]
 
 
 def check(cond, what: str) -> None:
@@ -327,7 +345,7 @@ def slab_bound(slots, W, chunk_ints, factor_rows, out_rows, value_bytes=None,
     nbytes = (slots * (W + 1) * 4 + value_bytes + chunk_ints * 4
               + factor_rows * rank * 4 + out_rows * rank * 4)
     ops = slots * rank * (W + 1)
-    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_bytes = nbytes / hw_peak("hbm_bw") * 1e3
     bound_ops = ops / F32_OPS_PER_S * 1e3
     return {"bound_ms": max(bound_bytes, bound_ops),
             "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
@@ -1348,7 +1366,7 @@ def lm_phase(torch, np, clock, ks, dev):
     # whole KV buffer read once.
     param_bytes = sum(x.numel() * x.element_size() for x in _leaves(params16))
     kv_bytes = 2 * cfg16.num_layers * B * (P + G) * cfg16.num_kv_heads * cfg16.head_dim * 4
-    bound_ms = (param_bytes + kv_bytes) / HBM_BYTES_PER_S * 1e3
+    bound_ms = (param_bytes + kv_bytes) / hw_peak("hbm_bw") * 1e3
 
     # The idle share of LM_IDLE_STEPS decode steps after a prefill.
     cache = model16.init_cache(B, P + G, dtype=torch.float32, device=dev)
@@ -1633,7 +1651,7 @@ def family_phase(torch, np, clock, ks, dev, name, arch, B, P, G):
     state = {"tok": steps.greedy(logits), "cache": cache}
     decode = steps.make_decode_step(model16)
     read_bytes = decode_read_bytes(cfg16, params16, cache, B)
-    bound_ms = read_bytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = read_bytes / hw_peak("hbm_bw") * 1e3
 
     def decode_steps():
         for _ in range(LM_IDLE_STEPS):
@@ -1701,7 +1719,8 @@ def train_bounds(cfg, tokens: int, params) -> dict:
     ops = (6 + (2 if cfg.remat != "none" else 0)) * active * tokens
     numel = sum(x.numel() for x in _leaves(params))
     bytes_ = 3 * _nbytes(params) + 4 * 4 * numel
-    flop_ms, byte_ms = ops / BF16_OPS_PER_S * 1e3, bytes_ / HBM_BYTES_PER_S * 1e3
+    flop_ms = ops / hw_peak("peak_flops_bf16") * 1e3
+    byte_ms = bytes_ / hw_peak("hbm_bw") * 1e3
     return {"active_params": active, "operations": ops, "flop_bound_ms": flop_ms,
             "adamw_bytes": bytes_,
             "byte_bound_ms": byte_ms, "bound_ms": max(flop_ms, byte_ms),
@@ -1993,6 +2012,135 @@ def train_phase(torch, np, clock, ks, dev):
           f"train: the training path launched the port's kernels {launches}")
     return {"phase": "train", TRAIN_ARCH: vlm, TRAIN_MOE_ARCH: moe,
             "factorized_embedding_example": {"runs": rows, "wall_s": example_s},
+            "launches": launches}
+
+
+def dryrun_phase(torch, np, clock, ks, dev):
+    """The dry run's table and counts held to the card.
+
+    (a) The H100 table ``launch.mesh.HW`` against the card: its SM count
+    equal, its memory at least ``HW["hbm_bytes"]``.  (b) One train step of
+    the ``train`` phase's shape (TRAIN_ARCH with the launcher's edits,
+    TRAIN_BATCH x TRAIN_SEQ, bf16, remat, one rank) counted by the dry
+    run's own functions (``dryrun._build``, ``dryrun._run``) on ``meta``,
+    then under the same ``OpCounter`` on the card with parameters from
+    seed 0.  Gates: FLOPs and bytes equal; the card's peak allocation over
+    the step (above what was allocated before its inputs) within
+    DRYRUN_MEMORY_RATIO of the dry run's peak live bytes.  Printed: the
+    step's bound from the counts and ``HW`` beside ``train_bounds``' and
+    the step's CUDA-event ms.  (c) One bf16 decode step of LM_ARCH at the
+    ``lm`` phase's shape (LM_BATCH, a cache of LM_PROMPT + LM_GEN
+    positions) counted the same two ways.  Gates: bytes equal, and at
+    least ``decode_read_bytes``.  No launch of the port's kernels."""
+    import dataclasses
+
+    from repro_torch import optim
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import HW, AbstractMesh
+    from repro_torch.launch.op_analysis import roofline_terms
+    from repro_torch.models import ShapeCfg, get_model
+
+    reset_launches(ks)
+    props = torch.cuda.get_device_properties(dev)
+    table = {"sm_count": props.multi_processor_count, "total_memory": props.total_memory,
+             "hw_sm_count": HW["sm_count"], "hw_hbm_bytes": HW["hbm_bytes"],
+             "nvidia_smi": nvidia_smi()}
+    check(props.multi_processor_count == HW["sm_count"],
+          f"dryrun: the card has {props.multi_processor_count} SMs, HW says {HW['sm_count']}")
+    check(props.total_memory >= HW["hbm_bytes"],
+          f"dryrun: the card has {props.total_memory} bytes, HW says {HW['hbm_bytes']}")
+    one_rank = AbstractMesh(("data", "model"), (1, 1))
+
+    def both(cfg, shape, card_args):
+        """Counts of the step on meta and, on ``card_args()``'s tensors,
+        on the card, with the card's peak allocation over the step."""
+        step, meta_args, _ = dryrun._build(cfg, shape, one_rank, quant_kv=False,
+                                           microbatch=1)
+        t0 = clock.now()
+        meta = dryrun._run(step, meta_args)
+        meta_s = clock.now() - t0
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        args = card_args()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = clock.now()
+        card = dryrun._run(step, args)
+        torch.cuda.synchronize()
+        card_s = clock.now() - t0
+        card_peak = torch.cuda.max_memory_allocated(dev) - base
+        flops_by_op = meta.pop("flops_by_op")
+        card.pop("flops_by_op")
+        return step, args, {
+            "meta": meta, "card": card, "flops_by_op": flops_by_op,
+            "meta_count_s": meta_s, "card_count_s": card_s,
+            "card_peak_allocated": card_peak,
+            "card_peak_over_counted": card_peak / meta["peak_live_bytes"],
+            "flops_equal": card["flops"] == meta["flops"],
+            "bytes_equal": card["bytes"] == meta["bytes"],
+            "bound": roofline_terms(flops=meta["flops"], hbm_bytes=meta["bytes"],
+                                    wire_bytes=0, n_chips=1, hw=HW)}
+
+    # (b) the train step.
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), num_prefix_tokens=0, enc_layers=0)
+    model = get_model(cfg)
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def train_args():
+        params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+        batch = {k: torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ), device=dev,
+                                  dtype=torch.int32, generator=gen)
+                 for k in ("tokens", "labels")}
+        return params, optim.init_state(params), batch
+
+    step, args, train = both(cfg, ShapeCfg("train", TRAIN_SEQ, TRAIN_BATCH, "train"),
+                             train_args)
+    train["step_ms"] = cuda_ms(torch, lambda: step(*args), 2)
+    train["train_bounds"] = train_bounds(cfg, TRAIN_BATCH * TRAIN_SEQ, args[0])
+    del step, args
+    torch.cuda.empty_cache()
+    lo, hi = DRYRUN_MEMORY_RATIO
+    check(train["flops_equal"] and train["bytes_equal"],
+          f"dryrun: {TRAIN_ARCH} train step counted {train['card']} on the card, "
+          f"{train['meta']} on meta")
+    check(lo <= train["card_peak_over_counted"] <= hi,
+          f"dryrun: the card's peak {train['card_peak_allocated']} is "
+          f"{train['card_peak_over_counted']} x the counted {train['meta']['peak_live_bytes']}")
+
+    # (c) the decode step.
+    cfg16 = get_config(LM_ARCH)
+    model16 = get_model(cfg16)
+    positions = LM_PROMPT + LM_GEN
+
+    def decode_args():
+        params = model16.init(torch.Generator(device=dev).manual_seed(0), dev)
+        cache = model16.init_cache(LM_BATCH, positions, dtype=torch.bfloat16, device=dev)
+        tokens = torch.randint(0, cfg16.vocab_size, (LM_BATCH, 1), device=dev,
+                               dtype=torch.int32, generator=gen)
+        return params, cache, {"tokens": tokens}
+
+    step, args, decode = both(cfg16, ShapeCfg("decode", positions, LM_BATCH, "decode"),
+                              decode_args)
+    decode["decode_read_bytes"] = decode_read_bytes(cfg16, args[0], args[1], LM_BATCH)
+    decode["step_ms"] = cuda_ms(torch, lambda: step(*args), 3)
+    del step, args
+    torch.cuda.empty_cache()
+    check(decode["bytes_equal"], f"dryrun: {LM_ARCH} decode step counted "
+                                 f"{decode['card']['bytes']} bytes on the card, "
+                                 f"{decode['meta']['bytes']} on meta")
+    check(decode["meta"]["bytes"] >= decode["decode_read_bytes"],
+          f"dryrun: {LM_ARCH} decode counted {decode['meta']['bytes']} bytes, under "
+          f"decode_read_bytes {decode['decode_read_bytes']}")
+
+    launches = dict(ks.LAUNCHES)
+    check(all(n == 0 for n in launches.values()),
+          f"dryrun: the counted steps launched the port's kernels {launches}")
+    return {"phase": "dryrun", "table": table,
+            "train": {"arch": TRAIN_ARCH, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, **train},
+            "decode": {"arch": LM_ARCH, "batch": LM_BATCH, "positions": positions,
+                       **decode},
             "launches": launches}
 
 
@@ -3013,6 +3161,13 @@ def main() -> int:
     emit(train_out)
     torch.cuda.empty_cache()
 
+    # -- dryrun: the dry run's H100 table and step counts held to the card --------
+    t0 = clock.now()
+    dryrun_out = dryrun_phase(torch, np, clock, ks, dev)
+    dryrun_out["phase_s"] = clock.now() - t0
+    emit(dryrun_out)
+    torch.cuda.empty_cache()
+
     # -- dist and pod: the mesh paths, kappa = 1 (NCCL) and 2 (gloo, one card) ---
     t0 = clock.now()
     grad_shapes = {"dA": (embed_out["factor_vocab"][0], EMBED_RANK),
@@ -3050,6 +3205,7 @@ def main() -> int:
                       "plan": plan_out["launches"],
                       "embed": embed_out["launches"]["mttkrp_slab"],
                       "train": train_out["launches"]["mttkrp_slab"],
+                      "dryrun": dryrun_out["launches"]["mttkrp_slab"],
                       "dist": dist_out["kappa1"]["ranks"][0]["b1e_launches"],
                       "dist_kappa2_ranks": [x["b1e_launches"]
                                             for x in dist_out["kappa2"]["ranks"]]}),

@@ -13,10 +13,12 @@ import torch.utils.deterministic
 def resolve_device(device) -> torch.device:
     """``torch.device`` for ``device``; raises when CUDA is asked for and
     absent.  Nothing falls back to the CPU: only an explicit ``"cpu"``
-    runs there."""
+    runs there.  An explicit ``"meta"`` is accepted for the dry run
+    (``launch.dryrun``): its tensors have shapes and no storage, so a
+    step runs without computing anything."""
     dev = torch.device(device)
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device!r} (cuda or cpu)")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"unsupported device {device!r} (cuda, cpu or meta)")
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(

@@ -28,12 +28,17 @@ tensor to the host and back around a gloo collective, explicitly, and
 counts the copies (``stats["staged_copies"]``); the sweep and the kernel
 stay on the card.  gloo also blocks the host for the collective's
 duration, which ``stats["wait_s"]`` adds up (host clock, every backend).
-``make_host_mesh`` is the trainer's 1-D mesh named ``data``.  The
-reference's TPU hardware table and production meshes (16 x 16 and
-2 x 16 x 16 TPU meshes) are not ported.
+``make_host_mesh`` is the trainer's 1-D mesh named ``data``.
+
+For the dry run (``launch.dryrun``) the module also holds ``HW``, the
+H100 SXM table its roofline reads, and ``make_production_mesh``, the
+reference's production layouts as ``AbstractMesh``es: axis names and
+sizes, no devices, no process group.
 """
 from __future__ import annotations
 
+import dataclasses
+import math
 import os
 import pickle
 import shutil
@@ -169,6 +174,46 @@ class Mesh:
     def barrier(self) -> None:
         if self.group is not None:
             dist.barrier(group=self.group)
+
+
+@dataclasses.dataclass(frozen=True)
+class AbstractMesh:
+    """A mesh described by its axis names and sizes alone: what the
+    sharding rules (``models.common.mesh_shape``) and the dry run read.
+    It holds no devices and runs nothing."""
+    axis_names: tuple
+    axis_sizes: tuple
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.axis_sizes)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
+    """The reference's production layouts: (data=16, model=16), and with
+    ``multi_pod`` (pod=2, data=16, model=16), whose ``pod`` axis is pure
+    data parallelism across hosts.  On H100s a 16-wide ``model`` axis
+    spans two NVLink hosts of 8 cards."""
+    if multi_pod:
+        return AbstractMesh(("pod", "data", "model"), (2, 16, 16))
+    return AbstractMesh(("data", "model"), (16, 16))
+
+
+# One NVIDIA H100 SXM (80 GB HBM3, 700 W power limit) for the roofline
+# model: NVIDIA's data sheet, dense rates.  ``ici_bw`` is NVLink's rate
+# each way to the other cards of a host of 8; ``dcn_bw`` one 400 Gb/s
+# network port per card across hosts; ``smem_bytes`` the shared memory
+# one block can use.
+HW = {
+    "name": "h100_sxm",
+    "peak_flops_bf16": 989e12,     # FLOP/s
+    "hbm_bw": 3.35e12,             # B/s
+    "ici_bw": 450e9,               # B/s
+    "dcn_bw": 50e9,                # B/s
+    "hbm_bytes": 80e9,
+    "smem_bytes": 232448,
+    "sm_count": 132,
+}
 
 
 def make_mesh(shape, axes, *, device="cuda") -> Mesh:
