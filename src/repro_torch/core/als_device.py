@@ -43,10 +43,15 @@ Window functions are cached per (backend, nmodes, rank, shapes, slab
 tiling, solver, block length, method), as the reference caches its
 compiled sweep blocks; ``sweep_cache_stats()`` exposes the hits and
 misses.  Each build registers in the build ledger (``obs.ledger.LEDGER``,
-kind ``sweep_block``; the MTTKRP-only replay as ``mttkrp_block``), and
-``sweep_trace_stats()`` is the ledger's view of the sweep blocks: the
-port's counterpart of the reference's trace counts, where a build takes
-the place of an XLA trace.
+kind ``sweep_block``), and ``sweep_trace_stats()`` is the ledger's view
+of the sweep blocks: the port's counterpart of the reference's trace
+counts, where a build takes the place of an XLA trace.
+
+Spans (``obs.trace``, in a Tracer and a recording ``torch.profiler``):
+``cpd.prepare`` (the uploads, mode data, fit data and block lookups, with
+``h2d_bytes``), ``als.window`` per window, inside it per sweep
+``als.mttkrp`` and ``als.update`` per mode and one ``als.fit``, then
+``cpd.finish`` (the fits read, the download, the result).
 """
 from __future__ import annotations
 
@@ -489,6 +494,7 @@ def build_lane_sweep(backend: str, nmodes: int, rank: int,
               else ctx.sparse_fit)
 
     def sweep(states, mode_data_all, fit_data, rescue=False):
+        tr = obs_trace.sink()
         factors = [list(st[0]) for st in states]
         grams = [list(st[1]) for st in states]
         weights = [st[2] for st in states]
@@ -501,17 +507,23 @@ def build_lane_sweep(backend: str, nmodes: int, rank: int,
             elif valued:
                 vals = [values_for(ctx, F, w, fd)
                         for F, w, fd in zip(factors, weights, fit_data)]
-            Ms = mttkrp(d, mode_data_all[d], factors, vals)
-            for b, M in enumerate(Ms):
-                Yd, lam, ok = update(ctx, d, M, factors[b], grams[b],
-                                     weights[b], rescue)
-                factors[b][d] = Yd
-                grams[b][d] = Yd.T @ Yd
-                weights[b] = lam
-                if ok is not None:
-                    oks[b].append(ok)
-        fits = [fit_fn(F, G, w, fd)
-                for F, G, w, fd in zip(factors, grams, weights, fit_data)]
+            with (obs_trace.NULL if tr is None else
+                  tr.span("als.mttkrp", cat="als", mode=d,
+                          lanes=len(states))):
+                Ms = mttkrp(d, mode_data_all[d], factors, vals)
+            with (obs_trace.NULL if tr is None else
+                  tr.span("als.update", cat="als", mode=d)):
+                for b, M in enumerate(Ms):
+                    Yd, lam, ok = update(ctx, d, M, factors[b], grams[b],
+                                         weights[b], rescue)
+                    factors[b][d] = Yd
+                    grams[b][d] = Yd.T @ Yd
+                    weights[b] = lam
+                    if ok is not None:
+                        oks[b].append(ok)
+        with obs_trace.NULL if tr is None else tr.span("als.fit", cat="als"):
+            fits = [fit_fn(F, G, w, fd)
+                    for F, G, w, fd in zip(factors, grams, weights, fit_data)]
         states = [(tuple(F), tuple(G), w)
                   for F, G, w in zip(factors, grams, weights)]
         return states, fits, [torch.stack(o).all() if o else None for o in oks]
@@ -586,27 +598,6 @@ def _build_sweep_block(backend: str, nmodes: int, rank: int,
         (backend, nmodes, rank, shapes, slab_meta, solver, "block", block,
          "method", method),
         run_block)
-
-
-@functools.lru_cache(maxsize=None)
-def _build_mttkrp_block(backend: str, nmodes: int, rank: int,
-                        shapes: tuple[int, ...], slab_meta: tuple | None,
-                        block: int):
-    """``run(factors, mode_data_all)``: ``block`` sweeps of the N mode
-    MTTKRPs with no solve, normalization or fit, queued with no host
-    read.  Timing it against the full sweep separates ``mttkrp_seconds``
-    (the kernel's cost does not depend on factor values, so replaying
-    with the final factors is faithful)."""
-    one_mttkrp = _build_one_mttkrp(backend, nmodes, shapes, slab_meta)
-
-    def run(factors, mode_data_all):
-        for _ in range(block):
-            for d in range(nmodes):
-                one_mttkrp(d, mode_data_all[d], factors)
-
-    return LEDGER.register(
-        "mttkrp_block",
-        (backend, nmodes, rank, shapes, slab_meta, "block", block), run)
 
 
 def sweep_cache_stats():
@@ -712,6 +703,15 @@ def make_fit_data(tensor: SparseTensor, device) -> tuple:
     )
 
 
+def _nbytes(arrays) -> int:
+    """Summed bytes of the tensors in a nest of tuples: what uploading
+    them copied (a fit data's index columns are split on the device and
+    add up to the one uploaded index array)."""
+    if isinstance(arrays, torch.Tensor):
+        return arrays.nbytes
+    return sum(_nbytes(a) for a in arrays)
+
+
 # ---------------------------------------------------------------------------
 # Driver
 # ---------------------------------------------------------------------------
@@ -732,7 +732,6 @@ def cpd_als_fused(
     method: str = "cp",
     init_state: tuple | None = None,
     weights: np.ndarray | None = None,
-    profile_mttkrp: bool = False,
     verbose: bool = False,
     device="cuda",
 ) -> CPDResult:
@@ -746,63 +745,74 @@ def cpd_als_fused(
     weights in canonical COO order, for weighted-fit methods ('masked')
     only: validated, then divided by ``max(1, w.max())``.  ``init_state``
     (a host state tuple, e.g. from ``state_from_factors``) warm-starts
-    instead of the method's seeded init.  ``profile_mttkrp=True`` replays
-    the run's MTTKRPs alone afterwards (their launches count in the
-    kernel's ``LAUNCHES``) so ``mttkrp_seconds`` is separable from the
-    rest; it covers value-baked mode data only (not 'masked')."""
+    instead of the method's seeded init.
+
+    ``CPDResult.h2d_bytes`` counts the call's own uploads: the initial
+    state, the fit data and, on the coo backend without a plan, the COO
+    arrays.  A plan's device arrays are uploaded once per plan (cached on
+    it) and not counted, also where this call built the plan."""
     t_start = obs_clock.now()
     dev = resolve_device(device)
     N = tensor.nmodes
     check_every = max(1, int(check_every))
-    spec = _method_spec(method)
-    if weights is not None:
-        if spec is None or not spec.weighted_fit:
-            raise ValueError(
-                f"per-entry weights require a weighted-fit method "
-                f"(e.g. 'masked'), got method={method!r}")
-        weights = normalize_entry_weights(
-            validate_entry_weights(tensor.nnz, weights))
-    if init_state is not None:
-        host_state = init_state
-    elif spec is not None and spec.init_state_host is not None:
-        host_state = spec.init_state_host(tensor.shape, rank, seed)
-    else:
-        host_state = init_state_host(tensor.shape, rank, seed)
-    state = state_from_reference(*host_state, device=dev)
-    solver = resolve_solver(solver, dev)
+    tr = obs_trace.sink()
+    with (obs_trace.NULL if tr is None else
+          tr.span("cpd.prepare", cat="cpd")) as prep:
+        spec = _method_spec(method)
+        if weights is not None:
+            if spec is None or not spec.weighted_fit:
+                raise ValueError(
+                    f"per-entry weights require a weighted-fit method "
+                    f"(e.g. 'masked'), got method={method!r}")
+            weights = normalize_entry_weights(
+                validate_entry_weights(tensor.nnz, weights))
+        if init_state is not None:
+            host_state = init_state
+        elif spec is not None and spec.init_state_host is not None:
+            host_state = spec.init_state_host(tensor.shape, rank, seed)
+        else:
+            host_state = init_state_host(tensor.shape, rank, seed)
+        state = state_from_reference(*host_state, device=dev)
+        h2d_bytes = _nbytes(state)
+        solver = resolve_solver(solver, dev)
 
-    structural = spec is not None and spec.valued_mode_data
-    if plan is None and backend == "coo":
-        # The coo backend needs no mode-specific layouts.
-        idx = torch.as_tensor(tensor.indices, device=dev)
-        coo = ((idx,) if structural else
-               (idx, torch.as_tensor(tensor.values.astype(np.float32), device=dev)))
-        mode_data_all, slab_meta = tuple(coo for _ in range(N)), None
-    else:
-        if plan is None:
-            plan = make_plan(tensor, kappa, device=dev)
-        elif plan.device != dev:
-            raise ValueError(f"plan lives on {plan.device}, run asked for {dev}")
-        collect = collect_structural_mode_data if structural else _collect_mode_data
-        mode_data_all, slab_meta = collect(plan, backend, rank)
-    if spec is not None and spec.make_fit_data is not None:
-        fit_data = spec.make_fit_data(tensor, weights, dev)
-    else:
-        fit_data = make_fit_data(tensor, dev)
+        structural = spec is not None and spec.valued_mode_data
+        if plan is None and backend == "coo":
+            # The coo backend needs no mode-specific layouts.
+            idx = torch.as_tensor(tensor.indices, device=dev)
+            coo = ((idx,) if structural else
+                   (idx, torch.as_tensor(tensor.values.astype(np.float32),
+                                         device=dev)))
+            h2d_bytes += _nbytes(coo)
+            mode_data_all, slab_meta = tuple(coo for _ in range(N)), None
+        else:
+            if plan is None:
+                plan = make_plan(tensor, kappa, device=dev)
+            elif plan.device != dev:
+                raise ValueError(
+                    f"plan lives on {plan.device}, run asked for {dev}")
+            collect = (collect_structural_mode_data if structural
+                       else _collect_mode_data)
+            mode_data_all, slab_meta = collect(plan, backend, rank)
+        if spec is not None and spec.make_fit_data is not None:
+            fit_data = spec.make_fit_data(tensor, weights, dev)
+        else:
+            fit_data = make_fit_data(tensor, dev)
+        h2d_bytes += _nbytes(fit_data)
 
-    shapes = tuple(int(s) for s in tensor.shape)
-    n_blocks, rem = divmod(n_iters, check_every)
-    sweep_k = _build_sweep_block(backend, N, rank, shapes, slab_meta, solver,
-                                 check_every, method) if n_blocks else None
-    sweep_rem = _build_sweep_block(backend, N, rank, shapes, slab_meta, solver,
-                                   rem, method) if rem else None
+        shapes = tuple(int(s) for s in tensor.shape)
+        n_blocks, rem = divmod(n_iters, check_every)
+        sweep_k = _build_sweep_block(backend, N, rank, shapes, slab_meta,
+                                     solver, check_every,
+                                     method) if n_blocks else None
+        sweep_rem = _build_sweep_block(backend, N, rank, shapes, slab_meta,
+                                       solver, rem, method) if rem else None
+        prep.set(h2d_bytes=h2d_bytes)
 
     fits_dev: list = []
     host_syncs = 0
     last_fit = -np.inf
     it = 0
-    windows_run: list[int] = []
-    tr = obs_trace.active()
     for b in range(n_blocks + (1 if rem else 0)):
         k = check_every if b < n_blocks else rem
         fn = sweep_k if b < n_blocks else sweep_rem
@@ -825,7 +835,6 @@ def cpd_als_fused(
                 f = float(fits_blk[-1])
                 host_syncs += 1
         fits_dev.append(fits_blk)
-        windows_run.append(k)
         it += k
         if verbose:
             print(f"  ALS iter {it:3d}: fit={f:.6f} ({method}/fused)")
@@ -833,48 +842,18 @@ def cpd_als_fused(
             break
         last_fit = f
 
-    host_syncs += 1                             # final materialization
-    fits = torch.cat(fits_dev).tolist() if fits_dev else []
-
-    mttkrp_seconds = 0.0
-    if profile_mttkrp and windows_run and not structural:
-        mttkrp_seconds = _profile_mttkrp_replay(
-            backend, N, rank, shapes, slab_meta, state[0], mode_data_all,
-            windows_run, dev)
-
-    return CPDResult(
-        factors=[F.cpu().numpy() for F in state[0]],
-        weights=state[2].cpu().numpy().astype(np.float64),
-        fits=fits,
-        iters=it,
-        mttkrp_seconds=mttkrp_seconds,
-        total_seconds=obs_clock.now() - t_start,
-        host_syncs=host_syncs,
-        engine="fused",
-        method=method,
-    )
-
-
-def _profile_mttkrp_replay(backend, nmodes, rank, shapes, slab_meta, factors,
-                           mode_data_all, windows_run, device) -> float:
-    """Wall time of the MTTKRP-only replay of the run's check windows, one
-    ``_build_mttkrp_block`` per window length (a warm-up call of each
-    first, outside the timing)."""
-    def sync():
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-
-    total = 0.0
-    for k in sorted(set(windows_run)):
-        fn = _build_mttkrp_block(backend, nmodes, rank, shapes, slab_meta, k)
-        fn(factors, mode_data_all)                  # warm-up
-        sync()
-        reps = windows_run.count(k)
-        with obs_trace.span("mttkrp.replay", cat="als", backend=backend,
-                            block=k, reps=reps):
-            t0 = obs_clock.now()
-            for _ in range(reps):
-                fn(factors, mode_data_all)
-            sync()
-            total += obs_clock.now() - t0
-    return total
+    with obs_trace.NULL if tr is None else tr.span("cpd.finish", cat="cpd"):
+        host_syncs += 1                         # final materialization
+        fits = torch.cat(fits_dev).tolist() if fits_dev else []
+        return CPDResult(
+            factors=[F.cpu().numpy() for F in state[0]],
+            weights=state[2].cpu().numpy().astype(np.float64),
+            fits=fits,
+            iters=it,
+            mttkrp_seconds=0.0,
+            total_seconds=obs_clock.now() - t_start,
+            host_syncs=host_syncs,
+            engine="fused",
+            method=method,
+            h2d_bytes=h2d_bytes,
+        )

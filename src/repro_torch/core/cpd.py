@@ -22,6 +22,7 @@ import torch
 
 from ..device import resolve_device
 from ..obs import clock as obs_clock
+from ..obs import trace as obs_trace
 from .coo import SparseTensor
 from .mttkrp import MTTKRPPlan, make_plan, mttkrp
 
@@ -37,6 +38,7 @@ class CPDResult:
     host_syncs: int = 0           # device->host synchronizations performed
     engine: str = "host"          # which ALS engine produced this result
     method: str = "cp"
+    h2d_bytes: int = 0            # bytes the fused call uploaded
 
     def reconstruct_at(self, indices: np.ndarray) -> np.ndarray:
         acc = np.ones((indices.shape[0], len(self.weights)))
@@ -99,15 +101,27 @@ def cpd_als(
             "engine='host' supports only method='cp' with random init; "
             "methods, warm starts and entry weights run on the fused engine")
     dev = resolve_device(device)
-    if engine == "fused":
-        from .als_device import cpd_als_fused
+    tr = obs_trace.sink()
+    with (obs_trace.NULL if tr is None else
+          tr.span("cpd.call", cat="cpd", engine=engine, method=method,
+                  backend=backend, n_iters=n_iters,
+                  check_every=check_every)):
+        if engine == "fused":
+            from .als_device import cpd_als_fused
 
-        return cpd_als_fused(
-            tensor, rank, plan=plan, kappa=kappa, n_iters=n_iters, tol=tol,
-            seed=seed, backend=backend, check_every=check_every,
-            method=method, init_state=init_state, weights=weights,
-            verbose=verbose, device=dev,
-        )
+            return cpd_als_fused(
+                tensor, rank, plan=plan, kappa=kappa, n_iters=n_iters,
+                tol=tol, seed=seed, backend=backend, check_every=check_every,
+                method=method, init_state=init_state, weights=weights,
+                verbose=verbose, device=dev,
+            )
+        return _cpd_als_host(tensor, rank, plan, kappa, n_iters, tol, seed,
+                             backend, verbose, dev)
+
+
+def _cpd_als_host(tensor, rank, plan, kappa, n_iters, tol, seed, backend,
+                  verbose, dev) -> CPDResult:
+    """``engine="host"``: the reference's per-mode host loop."""
     t_start = obs_clock.now()
     rng = np.random.default_rng(seed)
     N = tensor.nmodes

@@ -346,7 +346,7 @@ def cpd_als_distributed(
     host_syncs = 0
     last_fit = -np.inf
     it = 0
-    tr = obs_trace.active()
+    tr = obs_trace.sink()
     for b in range(n_blocks + (1 if rem else 0)):
         k = check_every if b < n_blocks else rem
         fn = fn_k if b < n_blocks else fn_rem

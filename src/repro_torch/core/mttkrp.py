@@ -22,6 +22,7 @@ from ..device import resolve_device
 from ..kernels import ops as kops
 from ..kernels import ref as kref
 from ..kernels.mttkrp_slab import mttkrp_slab, shared_memory_per_block, slab_chunks
+from ..obs import trace as obs_trace
 from . import plan as plan_mod
 from .coo import SparseTensor
 from .layout import ModeLayout, build_all_mode_layouts
@@ -50,16 +51,19 @@ class MTTKRPPlan:
     _dev_coo: tuple | None = None
 
     def packed(self, mode: int) -> kops.PackedModeLayout:
+        """The mode's packed slabs (packed on the host at first use, in a
+        ``plan.pack`` span, then cached)."""
         if mode not in self._packed:
-            if self.partition is not None:
-                mp = self.partition.modes[mode]
-                self._packed[mode] = kops.pack_layout(
-                    self.layouts[mode], block_rows=mp.block_rows,
-                    tile=mp.tile, num_slabs_cap=mp.slab_cap)
-            else:
-                self._packed[mode] = kops.pack_layout(
-                    self.layouts[mode], block_rows=self.block_rows,
-                    tile=self.tile)
+            with obs_trace.span("plan.pack", cat="plan", mode=mode):
+                if self.partition is not None:
+                    mp = self.partition.modes[mode]
+                    self._packed[mode] = kops.pack_layout(
+                        self.layouts[mode], block_rows=mp.block_rows,
+                        tile=mp.tile, num_slabs_cap=mp.slab_cap)
+                else:
+                    self._packed[mode] = kops.pack_layout(
+                        self.layouts[mode], block_rows=self.block_rows,
+                        tile=self.tile)
         return self._packed[mode]
 
     def mode_plan(self, mode: int, rank: int) -> plan_mod.ModePlan:
@@ -158,8 +162,9 @@ def make_plan(
     ('threshold', the paper's rule, or 'cost', ``scheme_cost``'s argmin).
     The packings and device arrays are cached on the returned plan only,
     so plans whose modes chose different schemes never share them."""
-    layouts = build_all_mode_layouts(tensor, kappa, scheme=scheme,
-                                     assignment=assignment, policy=policy)
+    with obs_trace.span("plan.layouts", cat="plan"):
+        layouts = build_all_mode_layouts(tensor, kappa, scheme=scheme,
+                                         assignment=assignment, policy=policy)
     return MTTKRPPlan(
         tensor=tensor,
         kappa=kappa,

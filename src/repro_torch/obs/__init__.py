@@ -1,11 +1,14 @@
 """Observability for the port (port of ``repro.obs``).
 
   clock     -- the one monotonic-clock front door (``perf_counter``).
-  trace     -- the span/event recorder: plan construction, window
-               dispatches, service flushes and dispatches, and streaming
-               increments report into the active tracer when one is
-               installed; JSONL and Chrome-trace export.  Spans measure
-               host time.
+  trace     -- the span/event recorder: front-door calls, planning,
+               window dispatches and their MTTKRP, update and fit stages,
+               service flushes and dispatches, and streaming increments
+               report into the active tracer when one is installed;
+               JSONL and Chrome-trace export.  Spans measure host time,
+               and also go to a recording ``torch.profiler`` (a tracer
+               installed or not), where the kernels queued inside each
+               count as its device time.
   ledger    -- the build ledger (``LEDGER``): every cache of built window
                functions registers its builds, the port's counterpart of
                the reference's retrace ledger.
@@ -25,10 +28,10 @@ here eagerly.
 from . import clock, health, trace  # noqa: F401
 from .ledger import LEDGER, RetraceLedger  # noqa: F401
 from .trace import (Tracer, active, capture, disable, enable, event,  # noqa: F401
-                    load_jsonl, span, validate_chrome)
+                    load_jsonl, sink, span, validate_chrome)
 
 __all__ = [
     "clock", "health", "trace", "LEDGER", "RetraceLedger", "Tracer",
-    "active", "capture", "disable", "enable", "event", "load_jsonl", "span",
-    "validate_chrome",
+    "active", "capture", "disable", "enable", "event", "load_jsonl", "sink",
+    "span", "validate_chrome",
 ]

@@ -9,7 +9,6 @@ over PyTorch ops and the slab kernel, built once per cache key.  A
 here:
 
   * ``core.als_device._build_sweep_block``        -- kind ``sweep_block``
-  * ``core.als_device._build_mttkrp_block``       -- kind ``mttkrp_block``
   * ``serve.batched_engine._build_batched_block`` -- kind ``batched_block``
   * ``obs.calibrate._mode_mttkrp_fn``             -- kind ``calibrate_mode``
   * ``core.als_device._build_sweep_block(axis=)`` -- kind ``dist_block``

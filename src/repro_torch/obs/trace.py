@@ -5,16 +5,16 @@ Design constraints, in priority order:
 1. **Disabled is free.**  There is no global "maybe trace" wrapper on the
    hot paths; instrumented call sites do::
 
-       tr = trace.active()
+       tr = trace.sink()
        if tr is None:
-           ... dispatch ...          # zero obs allocations, one global read
+           ... dispatch ...          # zero obs allocations
        else:
            with tr.span("als.window", cat="als", window=k):
                ... dispatch ...
 
-   ``active()`` returns a module global — no locks, no closures, no
-   kwargs dict on the disabled branch.  A test asserts the disabled path
-   adds zero allocations per dispatch.
+   ``sink()`` is one module-global read plus one profiler check — no
+   locks, no closures, no kwargs dict on the disabled branch.  A test
+   asserts the disabled path adds zero allocations per dispatch.
 2. **Records are plain dicts.**  One dict per finished span/event,
    appended to an in-memory list (CPython list.append is atomic under
    the GIL, so recording from scheduler/session threads needs no lock).
@@ -34,8 +34,17 @@ absolute times without any wall-clock subtraction in the measurement
 path.
 
 Spans measure host time.  On the card a span around queued work closes
-when the host has queued it, not when the device has run it; device time
-is read with CUDA events or ``torch.profiler`` instead.
+when the host has queued it, not when the device has run it.  Device time
+comes from ``torch.profiler``, the spans' second sink: a span opened while
+a profiler records (Tracer installed or not) also opens a profiler record
+of the same name for as long as it is open, so the spans sit among the
+profiler's host events on its clock, and the kernels queued inside a span
+count in that record's ``FunctionEvent.device_time_total``.  The record
+has the profiler's function scope, as an operator's has (the scope
+``torch.profiler.record_function`` gives is the user scope, whose
+records the profiler does not link kernels to): a kernel launched by the
+span's own code, outside any operator (the slab kernel's ctypes launch),
+is then linked to the span.
 """
 from __future__ import annotations
 
@@ -46,12 +55,25 @@ import os
 import threading
 from typing import IO, Any, Iterator
 
+from torch._C._profiler import _RecordFunctionFast
+from torch.autograd import _profiler_enabled
+
 from . import clock
 
 __all__ = [
-    "Tracer", "Span", "active", "enable", "disable", "capture", "span",
-    "event", "load_jsonl", "validate_chrome",
+    "Tracer", "Span", "active", "sink", "enable", "disable", "capture",
+    "span", "event", "load_jsonl", "validate_chrome",
 ]
+
+
+def _profiler_record(name: str):
+    """A profiler record named ``name``, entered, while a
+    ``torch.profiler`` records on this thread; else None."""
+    if not _profiler_enabled():
+        return None
+    record = _RecordFunctionFast(name)
+    record.__enter__()
+    return record
 
 
 class Span:
@@ -60,7 +82,7 @@ class Span:
     tracer only when the span closes."""
 
     __slots__ = ("_tracer", "name", "cat", "args", "id", "parent", "tid",
-                 "t0", "_p0", "_stack")
+                 "t0", "_p0", "_stack", "_record")
 
     def __init__(self, tracer: "Tracer", name: str, cat: str,
                  args: dict[str, Any]):
@@ -81,11 +103,14 @@ class Span:
 
     def __enter__(self) -> "Span":
         self._stack.append(self)
+        self._record = _profiler_record(self.name)
         return self
 
     def __exit__(self, exc_type, exc, tb) -> bool:
         t1 = clock.now()
         p1 = clock.process()
+        if self._record is not None:
+            self._record.__exit__(exc_type, exc, tb)
         stack = self._stack
         # Tolerate exits out of creation order (mis-nested user code):
         # remove self wherever it is rather than corrupting the stack.
@@ -235,9 +260,55 @@ _ACTIVE: Tracer | None = None
 
 
 def active() -> Tracer | None:
-    """The installed tracer, or None when tracing is disabled.  Hot
-    paths read this once and branch; the None branch is allocation-free."""
+    """The installed tracer, or None when tracing is disabled."""
     return _ACTIVE
+
+
+class _ProfilerSpan:
+    """A span only a recording ``torch.profiler`` sees (no Tracer is
+    installed): the profiler record of its name; attrs are dropped."""
+
+    __slots__ = ("name", "_record")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._record = None
+
+    def set(self, **attrs: Any) -> "_ProfilerSpan":
+        return self
+
+    def __enter__(self) -> "_ProfilerSpan":
+        self._record = _profiler_record(self.name)
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        if self._record is not None:
+            self._record.__exit__(exc_type, exc, tb)
+        return False
+
+
+class _ProfilerSink:
+    """``sink()``'s answer while a profiler records and no Tracer is
+    installed; ``span`` has the Tracer's signature."""
+
+    __slots__ = ()
+
+    def span(self, name: str, cat: str = "app", **attrs: Any) -> _ProfilerSpan:
+        return _ProfilerSpan(name)
+
+
+PROFILER = _ProfilerSink()
+
+
+def sink() -> Tracer | _ProfilerSink | None:
+    """Where a span opened now is recorded: the installed Tracer (its
+    spans also reach a recording profiler), else ``PROFILER`` while a
+    ``torch.profiler`` records, else None.  Hot paths read this once and
+    branch; the None branch is allocation-free."""
+    tr = _ACTIVE
+    if tr is not None:
+        return tr
+    return PROFILER if _profiler_enabled() else None
 
 
 def enable(tracer: Tracer | None = None) -> Tracer:
@@ -286,12 +357,13 @@ class _NullSpan:
 NULL = _NullSpan()
 
 
-def span(name: str, cat: str = "app", **attrs: Any) -> Span | _NullSpan:
-    """Convenience for warm (non-hot) paths: a real span when tracing is
-    on, an inert one otherwise.  Hot per-dispatch sites should use the
-    ``active()`` guard instead — this form builds a kwargs dict even
+def span(name: str, cat: str = "app", **attrs: Any
+         ) -> Span | _ProfilerSpan | _NullSpan:
+    """Convenience for warm (non-hot) paths: a span in ``sink()`` when
+    there is one, an inert one otherwise.  Hot per-dispatch sites should
+    use the ``sink()`` guard instead — this form builds a kwargs dict even
     when disabled."""
-    tr = _ACTIVE
+    tr = sink()
     return tr.span(name, cat, **attrs) if tr is not None else NULL
 
 

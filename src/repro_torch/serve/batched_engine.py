@@ -528,7 +528,7 @@ class BatchedEngine:
         fits_dev: list = []
         host_syncs = 0
         it = 0
-        tr = obs_trace.active()
+        tr = obs_trace.sink()
         while it < prep.max_iters:
             k = min(self.check_every, prep.max_iters - it)
             fn = _build_batched_block(

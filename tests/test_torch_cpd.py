@@ -20,6 +20,7 @@ from repro_torch.convert import state_from_reference, state_to_host
 from repro_torch.core import als_device
 from repro_torch.core.coo import SparseTensor, low_rank_sparse
 from repro_torch.core.cpd import cpd_als
+from repro_torch.obs import trace as obs_trace
 
 FIT_ATOL = 1e-4
 FACTOR_TOL = dict(rtol=1e-3, atol=1e-5)
@@ -164,10 +165,19 @@ def test_rescue_window_reruns_with_pinv(monkeypatch):
 
 
 def test_profile_mttkrp_and_solver_choice():
+    """Each mode's MTTKRP and update is a span of its own in every sweep,
+    and each sweep's fit one; and the solver choice."""
     _, t = _tensors((16, 12, 9), 500, 3, seed=8)
-    res = als_device.cpd_als_fused(t, 3, n_iters=2, tol=-1.0,
-                                   profile_mttkrp=True, device="cpu")
-    assert res.mttkrp_seconds > 0.0
+    with obs_trace.capture() as tr:
+        res = als_device.cpd_als_fused(t, 3, n_iters=2, tol=-1.0,
+                                       device="cpu")
+    spans = [r for r in tr.records() if r["kind"] == "span"]
+    mttkrp = [r["args"]["mode"] for r in spans if r["name"] == "als.mttkrp"]
+    assert mttkrp == [0, 1, 2] * 2
+    assert [r["args"]["mode"] for r in spans
+            if r["name"] == "als.update"] == [0, 1, 2] * 2
+    assert sum(r["name"] == "als.fit" for r in spans) == res.iters == 2
+    assert res.mttkrp_seconds == 0.0
     assert als_device.resolve_solver("auto", "cpu") == "inv"
     assert als_device.resolve_solver("auto", "cuda") == "cho"
     cho = als_device.cpd_als_fused(t, 3, n_iters=2, tol=-1.0, solver="cho",

@@ -104,9 +104,12 @@ def test_null_span_and_disabled_event():
     trace.event("dropped")                 # no tracer: nothing to record
 
 
-def test_disabled_window_guard_allocates_nothing():
+@pytest.mark.parametrize("guard", [trace.active, trace.sink])
+def test_disabled_window_guard_allocates_nothing(guard):
+    """Neither guard allocates with tracing off; ``sink`` adds the
+    profiler check to ``active``'s global read."""
     def guarded():
-        tr = trace.active()
+        tr = guard()
         with (trace.NULL if tr is None else tr.span("w")):
             pass
 
