@@ -3030,13 +3030,14 @@ def main() -> int:
     # Sweep split on the main path's data: MTTKRP, fit, and the rest; the
     # per-sweep update tails of cp and nncp (HALS) on the same MTTKRPs.
     one = als_device._build_one_mttkrp("slab", t.nmodes, shapes, meta)
-    fit_fn = als_device._build_sparse_fit(t.nmodes, RANK)
+    fit_fn = als_device._build_folded_fit(RANK)
     one_sweep = als_device._build_sweep_block("slab", t.nmodes, RANK, shapes,
                                               meta, "cho", 1)
     st = state_from_reference(*als_device.init_state_host(shapes, RANK, 0), device=dev)
     mttkrp_ms = cuda_ms(torch, lambda: [one(d, mode_data[d], st[0])
                                         for d in range(t.nmodes)], 5)
-    fit_ms = cuda_ms(torch, lambda: fit_fn(st[0], st[1], st[2], fit_data), 5)
+    m_last = one(t.nmodes - 1, mode_data[-1], st[0])
+    fit_ms = cuda_ms(torch, lambda: fit_fn(m_last, st[0], st[1], st[2], fit_data), 5)
     sweep_ms = cuda_ms(torch, lambda: one_sweep(st, mode_data, fit_data), 5)
     ctx = als_device.make_sweep_context("slab", t.nmodes, RANK, shapes, meta, "cho")
     Ms = [one(d, mode_data[d], st[0]) for d in range(t.nmodes)]
@@ -3057,7 +3058,7 @@ def main() -> int:
                                                meta, "cho", 2)
     two_sweeps(st, mode_data, fit_data)
     profile = device_idle(torch, lambda: two_sweeps(st, mode_data, fit_data), clock)
-    del Ms
+    del Ms, m_last
 
     # The batched entry per uber mode at B = 8, beside 8 torch.sparse.mm.
     batched_times = []

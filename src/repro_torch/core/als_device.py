@@ -29,14 +29,22 @@ whatever B is.  (The reference gets the same from ``jax.vmap``; in
 PyTorch a batched matmul or reduction may pick another kernel, and so
 another summation order, for another B.)
 
+The fit.  ``<X, X_hat>`` is read off the last mode's MTTKRP, which
+already sums every nonzero against the factors final for the sweep:
+``sum_r w_r sum_i F_N[i, r] M_N[i, r]``, an (I_N, R) reduction with no
+pass over the nonzeros (``_build_folded_fit``).  The masked method's
+MTTKRP runs on residuals, not the tensor's values, so its weighted fit
+keeps a pass of its own over the observed entries.
+
 Distributed sweeps.  With ``axis`` (a ``launch.mesh.Mesh``) mode data and
 fit data are one rank's shards (``core.distributed``) and the sweep sums
-the partial MTTKRP outputs and the fit's inner product (or residual mass)
-over the mesh -- the reference's ``lax.psum`` at the same points.  On the
-slab backend that is the kernel on this rank's packed shard, then
-``mesh.psum``, then the unrelabel (the reference's pallas branch with
-``axis``); scheme-1 modes of the segment backend may all-gather their
-owned rows instead (``collectives``).  State stays replicated: every rank
+the partial MTTKRP outputs (and the masked fit's residual mass) over the
+mesh -- the reference's ``lax.psum`` at the same points; the folded
+fit's last-mode MTTKRP is already that sum.  On the slab backend that
+is the kernel on this rank's packed shard, then ``mesh.psum``, then the
+unrelabel (the reference's pallas branch with ``axis``); scheme-1 modes
+of the segment backend may all-gather their owned rows instead
+(``collectives``).  State stays replicated: every rank
 computes the same update from the same summed MTTKRP.
 
 Window functions are cached per (backend, nmodes, rank, shapes, slab
@@ -50,8 +58,9 @@ counts, where a build takes the place of an XLA trace.
 Spans (``obs.trace``, in a Tracer and a recording ``torch.profiler``):
 ``cpd.prepare`` (the uploads, mode data, fit data and block lookups, with
 ``h2d_bytes``), ``als.window`` per window, inside it per sweep
-``als.mttkrp`` and ``als.update`` per mode and one ``als.fit``, then
-``cpd.finish`` (the fits read, the download, the result).
+``als.mttkrp`` and ``als.update`` per mode and one ``als.fit`` (its
+``source``: "mttkrp" for the folded fit, "nonzeros" for the weighted
+one), then ``cpd.finish`` (the fits read, the download, the result).
 """
 from __future__ import annotations
 
@@ -321,28 +330,26 @@ def normalize_columns(Yd):
     return Yd / lam, lam
 
 
-def _build_sparse_fit(nmodes: int, rank: int, axis=None):
-    """On-device sparse fit: ``<X, X_hat>`` over the nnz plus the
-    gram-product model norm; no dense reconstruction, no host read.
-    ``fit_data = (index columns, values, norm_x_sq)``.  With ``axis`` the
-    nnz are this rank's shard and the inner product is summed over the
-    mesh."""
+def _build_folded_fit(rank: int):
+    """The sparse fit folded into the last mode's MTTKRP ``M`` (I_N, R):
+    ``<X, X_hat> = sum_r w_r sum_i F_N[i, r] M[i, r]`` plus the
+    gram-product model norm; no pass over the nonzeros, no dense
+    reconstruction, no host read.  ``M`` must come from the factors that
+    are final for the sweep (the last mode's MTTKRP does), whatever the
+    update then made of ``F_N`` and ``w``.  Of the fit data it reads only
+    ``norm_x_sq``, the last entry.  In a distributed sweep ``M`` is
+    already summed over the mesh, so nothing is summed here."""
 
-    def sparse_fit(factors, grams, weights, fit_data):
-        idx_cols, values, norm_x_sq = fit_data
-        acc = factors[0].index_select(0, idx_cols[0])
-        for d in range(1, nmodes):
-            acc = acc * factors[d].index_select(0, idx_cols[d])
-        ip = values @ (acc @ weights)
-        if axis is not None:
-            ip = axis.psum(ip)
+    def folded_fit(M, factors, grams, weights, fit_data):
+        norm_x_sq = fit_data[-1]
+        ip = ((M * factors[-1]).sum(0) * weights).sum()
         V = _hadamard_grams(grams, rank)
         model_sq = weights @ V @ weights
         resid_sq = torch.clamp(norm_x_sq - 2.0 * ip + model_sq, min=0.0)
         return 1.0 - torch.sqrt(resid_sq) / torch.clamp(
             torch.sqrt(norm_x_sq), min=1e-12)
 
-    return sparse_fit
+    return folded_fit
 
 
 def _build_weighted_fit(nmodes: int, rank: int, axis=None):
@@ -350,9 +357,8 @@ def _build_weighted_fit(nmodes: int, rank: int, axis=None):
     ``1 - sqrt(sum_e w_e (x_e - model_e)^2) / sqrt(sum_e w_e x_e^2)``.
     ``fit_data = (indices, values, entry_weights, weighted_norm_sq)``;
     weight-0 entries (nnz padding, or entries the caller masked out) add
-    exactly +0.0.  ``grams`` is unused; the signature is the sparse fit's.
-    With ``axis`` the residual mass of this rank's shard is summed over
-    the mesh."""
+    exactly +0.0.  ``grams`` is unused.  With ``axis`` the residual mass
+    of this rank's shard is summed over the mesh."""
 
     def weighted_fit(factors, grams, weights, fit_data):
         indices, values, ew, norm_x_sq = fit_data
@@ -408,8 +414,8 @@ class SweepContext:
     mttkrp_valued: Callable   # lanes: (d, mode_data, factor_lanes, value_lanes)
     solve: Callable           # (M, V, rescue=False) -> (Yd, ok)
     normalize: Callable       # (Yd) -> (Yd, lam)
-    sparse_fit: Callable      # (factors, grams, weights, fit_data) -> fit
-    weighted_fit: Callable    # same signature, masked fit data
+    folded_fit: Callable      # (M_N, factors, grams, weights, fit_data)
+    weighted_fit: Callable    # (factors, grams, weights, fit_data) -> fit
     hadamard: Callable        # (grams, exclude=None) -> (R, R)
 
 
@@ -431,7 +437,7 @@ def make_sweep_context(backend: str, nmodes: int, rank: int,
         mttkrp_valued=lane_mttkrp if valued else None,
         solve=_solve_with_rescue(_build_solver(rank, solver)),
         normalize=normalize_columns,
-        sparse_fit=_build_sparse_fit(nmodes, rank, axis),
+        folded_fit=_build_folded_fit(rank),
         weighted_fit=_build_weighted_fit(nmodes, rank, axis),
         hadamard=functools.partial(_hadamard_grams, rank=rank),
     )
@@ -490,8 +496,7 @@ def build_lane_sweep(backend: str, nmodes: int, rank: int,
                 f"method {method!r} has no values at a rank's shard")
         shard_values = spec.shard_values
     mttkrp = ctx.mttkrp_valued if valued else ctx.one_mttkrp
-    fit_fn = (ctx.weighted_fit if spec is not None and spec.weighted_fit
-              else ctx.sparse_fit)
+    weighted = spec is not None and spec.weighted_fit
 
     def sweep(states, mode_data_all, fit_data, rescue=False):
         tr = obs_trace.sink()
@@ -521,9 +526,16 @@ def build_lane_sweep(backend: str, nmodes: int, rank: int,
                     weights[b] = lam
                     if ok is not None:
                         oks[b].append(ok)
-        with obs_trace.NULL if tr is None else tr.span("als.fit", cat="als"):
-            fits = [fit_fn(F, G, w, fd)
-                    for F, G, w, fd in zip(factors, grams, weights, fit_data)]
+        # Ms is the last mode's MTTKRP, one (I_N, R) output per lane.
+        with (obs_trace.NULL if tr is None else
+              tr.span("als.fit", cat="als",
+                      source="nonzeros" if weighted else "mttkrp")):
+            if weighted:
+                fits = [ctx.weighted_fit(F, G, w, fd) for F, G, w, fd
+                        in zip(factors, grams, weights, fit_data)]
+            else:
+                fits = [ctx.folded_fit(M, F, G, w, fd) for M, F, G, w, fd
+                        in zip(Ms, factors, grams, weights, fit_data)]
         states = [(tuple(F), tuple(G), w)
                   for F, G, w in zip(factors, grams, weights)]
         return states, fits, [torch.stack(o).all() if o else None for o in oks]
@@ -541,10 +553,10 @@ def build_sweep_fn(backend: str, nmodes: int, rank: int,
     ``M @ pinv(Vr)``.
 
     ``axis``: a mesh (``launch.mesh.Mesh``); mode and fit data are then
-    this rank's shards and the partial MTTKRPs and the fit are summed over
-    it (the distributed path).  ``collectives``: per-mode "psum" or
-    "gather" for the distributed segment path (see
-    ``_build_one_mttkrp``)."""
+    this rank's shards and the partial MTTKRPs (and the masked fit's
+    residual mass) are summed over it (the distributed path).
+    ``collectives``: per-mode "psum" or "gather" for the distributed
+    segment path (see ``_build_one_mttkrp``)."""
     if collectives is not None:
         if axis is None or backend != "segment":
             raise ValueError(
@@ -694,7 +706,8 @@ def state_from_factors(factors, weights=None):
 
 
 def make_fit_data(tensor: SparseTensor, device) -> tuple:
-    """``(index columns, values, norm_x_sq)`` of the sparse fit on ``device``."""
+    """``(index columns, values, norm_x_sq)`` of the sparse fit on
+    ``device``; the folded fit reads only ``norm_x_sq``."""
     idx = torch.as_tensor(tensor.indices, device=device)
     return (
         tuple(idx[:, d].contiguous() for d in range(tensor.nmodes)),

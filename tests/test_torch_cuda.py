@@ -109,6 +109,28 @@ def test_main_path_on_card_launches_the_kernel(cuda):
 
 
 @pytest.mark.cuda
+def test_sweep_writes_no_nnz_by_rank_array_on_card(cuda):
+    """The fit reads the last mode's MTTKRP, not the nonzeros: over a
+    5-sweep call on 1,000,000 nonzeros at rank 32 the card's peak stays
+    below the plan's packed copies plus one (nnz, R) float32 array
+    (128 MB); a fit that gathers factor rows per nonzero writes several."""
+    R = 32
+    t = random_sparse((2000, 300, 100), 1_000_000, seed=21,
+                      distribution="powerlaw")
+    plan = make_plan(t, 1, device=cuda)
+    packed = sum(a.nbytes for d in range(t.nmodes)
+                 for a in plan.device_packed(d) if isinstance(a, torch.Tensor))
+    cpd_als(t, R, plan=plan, n_iters=1, tol=-1.0)  # the build, the window
+    torch.cuda.synchronize(cuda)
+    others = torch.cuda.memory_allocated(cuda) - packed
+    torch.cuda.reset_peak_memory_stats(cuda)
+    res = cpd_als(t, R, plan=plan, n_iters=5, tol=-1.0)
+    peak = torch.cuda.max_memory_allocated(cuda) - others
+    assert res.iters == 5 and t.nnz == 1_000_000
+    assert peak < packed + t.nnz * R * 4
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("R,rank_block", [(8, None), (33, 16)])
 def test_batched_lanes_equal_single_launches_on_card(cuda, R, rank_block):
     """Lane b of one batched launch is bitwise the single launch on lane
