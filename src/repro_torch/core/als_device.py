@@ -705,14 +705,21 @@ def state_from_factors(factors, weights=None):
     return (factors, grams, np.asarray(weights, dtype=np.float32))
 
 
-def make_fit_data(tensor: SparseTensor, device) -> tuple:
+def make_fit_data(tensor: SparseTensor, device, staged=None) -> tuple:
     """``(index columns, values, norm_x_sq)`` of the sparse fit on
-    ``device``; the folded fit reads only ``norm_x_sq``."""
-    idx = torch.as_tensor(tensor.indices, device=device)
+    ``device``; the folded fit reads only ``norm_x_sq``.  ``staged`` --
+    ``MTTKRPPlan.staged_fit_data()``: the host side made once, uploaded
+    from page-locked memory (default: made from ``tensor`` now)."""
+    if staged is None:
+        staged = (torch.from_numpy(tensor.indices),
+                  torch.from_numpy(tensor.values.astype(np.float32)),
+                  tensor.norm() ** 2)
+    host_idx, host_vals, norm_sq = staged
+    idx = host_idx.to(device, non_blocking=True)
     return (
         tuple(idx[:, d].contiguous() for d in range(tensor.nmodes)),
-        torch.as_tensor(tensor.values.astype(np.float32), device=device),
-        torch.tensor(tensor.norm() ** 2, dtype=torch.float32, device=device),
+        host_vals.to(device, non_blocking=True),
+        torch.tensor(norm_sq, dtype=torch.float32, device=device),
     )
 
 
@@ -761,9 +768,11 @@ def cpd_als_fused(
     instead of the method's seeded init.
 
     ``CPDResult.h2d_bytes`` counts the call's own uploads: the initial
-    state, the fit data and, on the coo backend without a plan, the COO
-    arrays.  A plan's device arrays are uploaded once per plan (cached on
-    it) and not counted, also where this call built the plan."""
+    state, the fit data (from the plan's page-locked copy where the plan
+    is of this tensor and on a card) and, on the coo backend without a
+    plan, the COO arrays.  A plan's device arrays are uploaded once per
+    plan (cached on it) and not counted, also where this call built the
+    plan."""
     t_start = obs_clock.now()
     dev = resolve_device(device)
     N = tensor.nmodes
@@ -810,7 +819,9 @@ def cpd_als_fused(
         if spec is not None and spec.make_fit_data is not None:
             fit_data = spec.make_fit_data(tensor, weights, dev)
         else:
-            fit_data = make_fit_data(tensor, dev)
+            fit_data = make_fit_data(
+                tensor, dev, None if plan is None or plan.tensor is not tensor
+                else plan.staged_fit_data())
         h2d_bytes += _nbytes(fit_data)
 
         shapes = tuple(int(s) for s in tensor.shape)

@@ -1,4 +1,4 @@
-"""Adaptive load balancing (paper §III-B), host numpy.
+"""Adaptive load balancing (paper §III-B).
 
 Two schemes, chosen adaptively per output mode against kappa partitions:
 
@@ -10,8 +10,12 @@ Two schemes, chosen adaptively per output mode against kappa partitions:
   Scheme 2 (I_d < kappa): distribute the *nonzeros* equally: sort
     hyperedges by output vertex id and split into kappa equal chunks.
 
-Partitioning is one-time preprocessing per tensor per mode.  The arrays
-are bitwise those of ``repro.core.load_balance``.  ``scheme_cost`` /
+Partitioning is one-time preprocessing per tensor per mode.  The work
+over the nonzeros (each vertex's degree, each nonzero's sort key and the
+stable sort that orders them) runs as torch operations on the device the
+mode's index column lies on; the work over the vertices (the greedy heap,
+the offsets) runs on the host.  The arrays are bitwise those of
+``repro.core.load_balance``.  ``scheme_cost`` /
 ``choose_scheme_cost_based`` price both schemes from the partitioning
 statistics (``layout`` ``policy="cost"``); ``balance_bound_holds`` checks
 a partitioning against Graham's 4/3 bound.
@@ -23,7 +27,9 @@ import enum
 import heapq
 
 import numpy as np
+import torch
 
+from ..obs import trace as obs_trace
 from .coo import SparseTensor
 
 
@@ -40,19 +46,27 @@ class Partitioning:
       scheme: which load-balancing scheme was used.
       mode: the output mode d.
       kappa: number of partitions.
-      perm: (nnz,) int64 ordering of the COO nnz so partition p's nonzeros
-        are ``perm[offsets[p]:offsets[p+1]]``.
+      order: (nnz,) int64 tensor, on the device the partition was computed
+        on, ordering the COO nnz so partition p's nonzeros are
+        ``order[offsets[p]:offsets[p+1]]``; ``perm`` is its host copy.
       offsets: (kappa+1,) int64 nnz boundaries per partition.
       vertex_part: (I_d,) int32 partition id per output index (scheme 1),
         else None (scheme 2 shares all vertices).
+      degrees: (I_d,) int64 nonzeros per output index.
     """
 
     scheme: Scheme
     mode: int
     kappa: int
-    perm: np.ndarray
+    order: torch.Tensor
     offsets: np.ndarray
     vertex_part: np.ndarray | None
+    degrees: np.ndarray
+
+    @property
+    def perm(self) -> np.ndarray:
+        """(nnz,) int64 host copy of ``order``."""
+        return self.order.cpu().numpy()
 
     @property
     def loads(self) -> np.ndarray:
@@ -134,52 +148,80 @@ def partition_mode(
     *,
     scheme: Scheme | None = None,
     assignment: str = "greedy",
+    column: torch.Tensor | None = None,
 ) -> Partitioning:
     """Partition the nonzeros of ``tensor`` for output ``mode`` into kappa parts.
 
     assignment: 'greedy' (LPT least-loaded, 4/3 bound) or 'cyclic' (the
       paper's round-robin over the degree-ordered vertex list).
+    column: the mode's (nnz,) index column as a tensor; the nonzeros are
+      ordered on its device (default: the host tensor's, on the CPU).
+
+    The ordering runs in a ``plan.sort`` span (``mode``) that ends once
+    the device has finished it.
     """
     if kappa < 1:
         raise ValueError("kappa must be >= 1")
     I_d = tensor.shape[mode]
     if scheme is None:
         scheme = choose_scheme(I_d, kappa)
-    idx_d = tensor.indices[:, mode].astype(np.int64)
-
-    if scheme == Scheme.INDEX_PARTITION:
-        degrees = np.bincount(idx_d, minlength=I_d)
-        order = np.argsort(-degrees, kind="stable")  # heavy first
-        vertex_part = np.empty(I_d, dtype=np.int32)
-        if assignment == "cyclic":
-            vertex_part[order] = np.arange(I_d, dtype=np.int32) % kappa
-        elif assignment == "greedy":
-            heap = [(0, p) for p in range(kappa)]
-            heapq.heapify(heap)
-            for v in order:
-                load, p = heapq.heappop(heap)
-                vertex_part[v] = p
-                heapq.heappush(heap, (load + int(degrees[v]), p))
+    if column is None:
+        column = torch.from_numpy(tensor.indices[:, mode])
+    with obs_trace.span("plan.sort", cat="plan", mode=mode):
+        degrees = torch.bincount(column, minlength=I_d).cpu().numpy()
+        if scheme == Scheme.INDEX_PARTITION:
+            vertex_part = _assign_vertices(degrees, kappa, assignment)
+            if kappa == 1:
+                key = column
+            else:
+                # Order nnz by (partition, output row): each partition's
+                # slice is already row-sorted, so the segmented reduction
+                # needs no sort.  One stable sort of the combined key is
+                # ``np.lexsort((idx_d, nnz_part))``.
+                part_t = torch.as_tensor(vertex_part, device=column.device)
+                key = torch.index_select(part_t, 0, column)
+                if kappa * I_d >= 2 ** 31:
+                    key = key.long()
+                key = key * I_d + column
+            order = torch.sort(key, stable=True).indices
+            del key
+            counts = np.bincount(vertex_part, weights=degrees,
+                                 minlength=kappa).astype(np.int64)
         else:
-            raise ValueError(f"unknown assignment {assignment!r}")
-        nnz_part = vertex_part[idx_d]
-        # Order nnz by (partition, output row): each partition's slice is
-        # already row-sorted, so the segmented reduction needs no sort.
-        perm = np.lexsort((idx_d, nnz_part))
-        counts = np.bincount(nnz_part, minlength=kappa)
-        offsets = np.zeros(kappa + 1, dtype=np.int64)
-        np.cumsum(counts, out=offsets[1:])
-        return Partitioning(scheme, mode, kappa, perm, offsets, vertex_part)
-
-    # Scheme 2: order hyperedges by output vertex id, split equally.
-    perm = np.argsort(idx_d, kind="stable")
-    nnz = tensor.nnz
-    base, rem = divmod(nnz, kappa)
-    counts = np.full(kappa, base, dtype=np.int64)
-    counts[:rem] += 1
+            # Scheme 2: order hyperedges by output vertex id, split equally.
+            vertex_part = None
+            order = torch.sort(column, stable=True).indices
+            base, rem = divmod(tensor.nnz, kappa)
+            counts = np.full(kappa, base, dtype=np.int64)
+            counts[:rem] += 1
+        if order.device.type == "cuda":
+            torch.cuda.synchronize(order.device)
     offsets = np.zeros(kappa + 1, dtype=np.int64)
     np.cumsum(counts, out=offsets[1:])
-    return Partitioning(scheme, mode, kappa, perm, offsets, None)
+    return Partitioning(scheme, mode, kappa, order, offsets, vertex_part,
+                        degrees)
+
+
+def _assign_vertices(degrees: np.ndarray, kappa: int,
+                     assignment: str) -> np.ndarray:
+    """(I_d,) int32 partition of each output index, heavy vertices first."""
+    if assignment not in ("greedy", "cyclic"):
+        raise ValueError(f"unknown assignment {assignment!r}")
+    I_d = len(degrees)
+    if kappa == 1:      # what either assignment gives on one partition
+        return np.zeros(I_d, dtype=np.int32)
+    order = np.argsort(-degrees, kind="stable")  # heavy first
+    vertex_part = np.empty(I_d, dtype=np.int32)
+    if assignment == "cyclic":
+        vertex_part[order] = np.arange(I_d, dtype=np.int32) % kappa
+        return vertex_part
+    heap = [(0, p) for p in range(kappa)]
+    heapq.heapify(heap)
+    for v in order:
+        load, p = heapq.heappop(heap)
+        vertex_part[v] = p
+        heapq.heappush(heap, (load + int(degrees[v]), p))
+    return vertex_part
 
 
 def balance_bound_holds(part: Partitioning, tensor: SparseTensor) -> bool:

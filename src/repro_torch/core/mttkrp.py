@@ -25,8 +25,34 @@ from ..kernels.mttkrp_slab import mttkrp_slab, shared_memory_per_block, slab_chu
 from ..obs import trace as obs_trace
 from . import plan as plan_mod
 from .coo import SparseTensor
-from .layout import ModeLayout, build_all_mode_layouts
+from .layout import ModeLayout, build_all_mode_layouts, coo_columns
 from .load_balance import Scheme
+
+
+def _settle(device: torch.device) -> None:
+    """At the end of a planning span on a card (set-up only): wait for the
+    device, so that the span's host seconds cover its device work, and
+    hand the span's freed temporaries back to the device, so that the
+    arrays allocated next take blocks of their own size rather than
+    larger cached ones."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
+
+
+def _tensors(obj):
+    """The tensors in a nest of tuples, lists, dicts and dataclasses."""
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif isinstance(obj, (tuple, list)):
+        for o in obj:
+            yield from _tensors(o)
+    elif isinstance(obj, dict):
+        for o in obj.values():
+            yield from _tensors(o)
+    elif dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        for f in dataclasses.fields(obj):
+            yield from _tensors(getattr(obj, f.name))
 
 
 @dataclasses.dataclass
@@ -34,7 +60,11 @@ class MTTKRPPlan:
     """Preprocessing product: all mode copies + (lazily) packed slabs and
     their device copies, built once and reused by every ALS iteration.
     With a ``partition`` attached, packing follows its static per-mode
-    decisions (slab caps included)."""
+    decisions (slab caps included).
+
+    On a card the copies are sorted and packed there, from the COO
+    uploaded once (``_source``, dropped when the last mode is packed);
+    the packed arrays stay on the card and are the device data."""
 
     tensor: SparseTensor
     kappa: int
@@ -44,26 +74,61 @@ class MTTKRPPlan:
     block_rows: int = kops.DEFAULT_BLOCK_ROWS
     tile: int = kops.DEFAULT_TILE
     partition: plan_mod.PartitionPlan | None = None
+    _source: tuple | None = None
+    _staged: tuple | None = None
     _packed: dict[int, kops.PackedModeLayout] = dataclasses.field(default_factory=dict)
     _dev_arrays: dict[int, tuple] = dataclasses.field(default_factory=dict)
     _dev_packed: dict[int, tuple] = dataclasses.field(default_factory=dict)
     _dev_structural: dict[tuple, tuple] = dataclasses.field(default_factory=dict)
     _dev_coo: tuple | None = None
 
+    @property
+    def device_bytes(self) -> int:
+        """Bytes of the plan's tensors on its device (each storage once):
+        the packings, the device data cached for the backends and, while
+        planning, the uploaded COO."""
+        seen = {}
+        for t in _tensors((self._source, self._packed, self._dev_arrays,
+                           self._dev_packed, self._dev_structural,
+                           self._dev_coo)):
+            if t.device == self.device:
+                seen[t.untyped_storage().data_ptr()] = (
+                    t.untyped_storage().nbytes())
+        return sum(seen.values())
+
+    def staged_fit_data(self) -> tuple | None:
+        """The host side of every call's fit data for a plan on a card,
+        made once (None elsewhere): ``(indices (nnz, N) int32, values
+        (nnz,) float32)`` in page-locked memory, so each upload is one
+        copy at the link's rate, and ``||X||^2``."""
+        if self.device.type != "cuda":
+            return None
+        if self._staged is None:
+            t = self.tensor
+            self._staged = (
+                torch.from_numpy(np.asarray(t.indices)).pin_memory(),
+                torch.from_numpy(
+                    np.asarray(t.values, dtype=np.float32)).pin_memory(),
+                t.norm() ** 2)
+        return self._staged
+
     def packed(self, mode: int) -> kops.PackedModeLayout:
-        """The mode's packed slabs (packed on the host at first use, in a
-        ``plan.pack`` span, then cached)."""
+        """The mode's packed slabs (packed where the uploaded COO lies at
+        first use, in a ``plan.pack`` span, then cached)."""
         if mode not in self._packed:
+            lay = self.layouts[mode]
             with obs_trace.span("plan.pack", cat="plan", mode=mode):
                 if self.partition is not None:
                     mp = self.partition.modes[mode]
-                    self._packed[mode] = kops.pack_layout(
-                        self.layouts[mode], block_rows=mp.block_rows,
-                        tile=mp.tile, num_slabs_cap=mp.slab_cap)
+                    tiling = dict(block_rows=mp.block_rows, tile=mp.tile,
+                                  num_slabs_cap=mp.slab_cap)
                 else:
-                    self._packed[mode] = kops.pack_layout(
-                        self.layouts[mode], block_rows=self.block_rows,
-                        tile=self.tile)
+                    tiling = dict(block_rows=self.block_rows, tile=self.tile)
+                self._packed[mode] = kops.pack_layout(
+                    lay, source=self._source, **tiling)
+                if len(self._packed) == len(self.layouts):
+                    self._source = None
+                _settle(self._packed[mode].device)
         return self._packed[mode]
 
     def mode_plan(self, mode: int, rank: int) -> plan_mod.ModePlan:
@@ -94,16 +159,17 @@ class MTTKRPPlan:
         return self._dev_arrays[mode]
 
     def device_packed(self, mode: int) -> tuple:
-        """Packed slab arrays on the plan's device (cached, uploaded once):
+        """Packed slab arrays on the plan's device (cached; the packing's
+        own tensors where it packed there):
         ``(idx_packed, vals_packed, lrows_packed, rb_of, chunks, row_perm)``."""
         if mode not in self._dev_packed:
             p = self.packed(mode)
             dev = self.device
             self._dev_packed[mode] = (
-                torch.as_tensor(p.idx_packed, device=dev),
-                torch.as_tensor(p.weighted_vals(), device=dev),
-                torch.as_tensor(p.lrows_packed, device=dev),
-                torch.as_tensor(p.rb_of, device=dev),
+                p.slots["idx_packed"].to(dev),
+                p.weighted_vals_tensor().to(dev),
+                p.slots["lrows_packed"].to(dev),
+                p.slots["rb_of"].to(dev),
                 slab_chunks(p.rb_of, p.num_row_blocks, dev),
                 torch.as_tensor(self.layouts[mode].row_perm.astype(np.int64),
                                 device=dev),
@@ -118,13 +184,12 @@ class MTTKRPPlan:
         order and ``val_scatter`` layout order to packed slots (int64)."""
         key = (mode, backend)
         if key not in self._dev_structural:
-            perm = torch.as_tensor(self.layouts[mode].perm.astype(np.int64),
+            perm = torch.as_tensor(self.layouts[mode].perm,
                                    device=self.device)
             if backend == "slab":
                 idxp, _, lrowsp, rb_of, chunks, row_perm = self.device_packed(mode)
-                scatter = torch.as_tensor(
-                    self.packed(mode).val_scatter.astype(np.int64),
-                    device=self.device)
+                scatter = self.packed(mode).scatter_tensor().to(
+                    self.device, torch.int64)
                 arrays = (idxp, lrowsp, rb_of, chunks, row_perm, perm, scatter)
             elif backend == "segment":
                 idx, rows, _, row_perm = self.device_arrays(mode)
@@ -160,20 +225,32 @@ def make_plan(
     """All mode copies of ``tensor`` over ``kappa`` partitions, with each
     mode's scheme forced (``scheme``) or chosen by ``policy``
     ('threshold', the paper's rule, or 'cost', ``scheme_cost``'s argmin).
-    The packings and device arrays are cached on the returned plan only,
-    so plans whose modes chose different schemes never share them."""
+    On a card the COO is uploaded once and every copy is sorted and
+    later packed there; elsewhere on the CPU.  The packings and device
+    arrays are cached on the returned plan only, so plans whose modes
+    chose different schemes never share them."""
+    dev = resolve_device(device)
+    where = dev if dev.type == "cuda" else torch.device("cpu")
     with obs_trace.span("plan.layouts", cat="plan"):
+        # The values before the columns, whose staging copy is freed: no
+        # array that stays shares a segment with that hole.
+        values = torch.as_tensor(
+            np.asarray(tensor.values, dtype=np.float32), device=where)
+        columns = coo_columns(tensor, where)
         layouts = build_all_mode_layouts(tensor, kappa, scheme=scheme,
-                                         assignment=assignment, policy=policy)
+                                         assignment=assignment, policy=policy,
+                                         columns=columns)
+        _settle(where)
     return MTTKRPPlan(
         tensor=tensor,
         kappa=kappa,
         layouts=layouts,
-        device=resolve_device(device),
+        device=dev,
         assignment=assignment,
         block_rows=block_rows,
         tile=tile,
         partition=partition,
+        _source=(columns, values),
     )
 
 

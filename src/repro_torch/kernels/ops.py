@@ -1,9 +1,13 @@
-"""Host-side slab packing and the packed-layout MTTKRP wrappers.
+"""Slab packing and the packed-layout MTTKRP wrappers.
 
 ``pack_slabs`` converts a row-sorted mode layout into the fixed-shape slab
-arrays the kernel consumes.  Packing is one-time host preprocessing per
-mode copy (amortized over all ALS iterations).  The packed arrays are
-bitwise those of ``repro.kernels.ops`` at the same ``(block_rows, tile)``.
+arrays the kernel consumes.  Packing is one-time preprocessing per mode
+copy (amortized over all ALS iterations).  The per-slab arrays (``rb_of``,
+``first``) come from per-row-block arithmetic on the host; the per-slot
+arrays are torch gathers on the device the layout's data lies on, and
+stay there.  Their host copies are made on first read.  The packed arrays
+are bitwise those of ``repro.kernels.ops`` at the same ``(block_rows,
+tile)``.
 
 The tile model (``tile_candidates``, ``auto_rank_block``,
 ``estimate_pack_cost``, ``auto_tiles``) prices a ``(block_rows, tile)``
@@ -31,11 +35,21 @@ DEFAULT_BLOCK_ROWS = 128
 DATASHEET_BYTES_PER_S = 3.35e12
 
 
-@dataclasses.dataclass(frozen=True)
+def _slot_view(name: str) -> property:
+    """The host copy of the packing's ``slots[name]`` (None where absent),
+    made on first read."""
+    return property(lambda self: self._host_copy(
+        name, lambda: self.slots.get(name)))
+
+
+@dataclasses.dataclass(eq=False)
 class PackedModeLayout:
     """Device-ready slab packing of one mode layout.
 
-    Shapes: G slabs, T = tile nonzeros per slab, W input modes.
+    Shapes: G slabs, T = tile nonzeros per slab, W input modes.  The
+    per-slot arrays live as tensors in ``slots`` on the device that packed
+    them; the attributes of the same names are their host copies, made on
+    first read (a view on the CPU).
     """
 
     mode: int
@@ -45,36 +59,202 @@ class PackedModeLayout:
     tile: int
     rb_of: np.ndarray          # (G,) int32
     first: np.ndarray          # (G,) int32
-    idx_packed: np.ndarray     # (W, G*T) int32
-    vals_packed: np.ndarray    # (1, G*T) float32
-    lrows_packed: np.ndarray   # (1, G*T) int32
     input_modes: tuple[int, ...]
     pad_fraction: float        # padding overhead (diagnostic)
-    num_real_slabs: int = -1   # slabs before cap padding
-    # (nnz,) int32 flat position in vals_packed[0] of each layout-order
-    # entry: scattering a fresh value vector through it rebuilds
-    # vals_packed on device without repacking.
-    val_scatter: np.ndarray | None = None
-    # (1, G*T) float32 per-entry observation weights (None: unweighted);
-    # padding slots carry weight 0.
-    wts_packed: np.ndarray | None = None
+    num_real_slabs: int        # slabs before cap padding
+    # idx_packed (W, G*T) int32, vals_packed (1, G*T) float32,
+    # lrows_packed (1, G*T) int32, rb_of (G,) int32 and, for a weighted
+    # packing, wts_packed (1, G*T) float32 (padding slots weight 0).
+    slots: dict
+    # Per row block: its first layout entry and the packed slot of that
+    # entry (``val_scatter`` in closed form).
+    block_entry: np.ndarray
+    block_slot: np.ndarray
+    nnz: int
+    _host: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
     def num_slabs(self) -> int:
         return int(self.rb_of.shape[0])
 
+    @property
+    def device(self) -> torch.device:
+        return self.slots["idx_packed"].device
+
+    def _host_copy(self, name: str, make) -> np.ndarray | None:
+        """Host copy of the tensor ``make()`` gives, made on first read."""
+        if name not in self._host:
+            t = make()
+            self._host[name] = None if t is None else t.cpu().numpy()
+        return self._host[name]
+
+    idx_packed = _slot_view("idx_packed")
+    vals_packed = _slot_view("vals_packed")
+    lrows_packed = _slot_view("lrows_packed")
+    wts_packed = _slot_view("wts_packed")
+
+    @property
+    def val_scatter(self) -> np.ndarray:
+        """(nnz,) int32 flat position in vals_packed[0] of each
+        layout-order entry: scattering a fresh value vector through it
+        rebuilds vals_packed on device without repacking."""
+        return self._host_copy("val_scatter", self.scatter_tensor)
+
+    def scatter_tensor(self) -> torch.Tensor:
+        """``val_scatter`` on the packing's device (made anew each call):
+        an entry's slot is its row block's first slot plus its offset
+        from the block's first entry."""
+        dev = self.device
+        lens = np.diff(self.block_entry)
+        shift = torch.as_tensor(self.block_slot[:-1] - self.block_entry[:-1],
+                                device=dev)
+        pos = torch.arange(self.nnz, dtype=torch.int64, device=dev)
+        pos += torch.repeat_interleave(
+            shift, torch.as_tensor(lens, device=dev), output_size=self.nnz)
+        return pos.to(torch.int32)
+
+    def weighted_vals_tensor(self) -> torch.Tensor:
+        """Kernel-ready values on the packing's device: ``vals_packed *
+        wts_packed`` (``vals_packed`` itself for an unweighted packing)."""
+        vals, wts = self.slots["vals_packed"], self.slots.get("wts_packed")
+        return vals if wts is None else vals * wts
+
     def weighted_vals(self) -> np.ndarray:
-        """Kernel-ready values: ``vals_packed * wts_packed`` (or
-        ``vals_packed`` unchanged for an unweighted packing)."""
-        if self.wts_packed is None:
+        """Host copy of ``weighted_vals_tensor()``."""
+        if self.slots.get("wts_packed") is None:
             return self.vals_packed
-        return (self.vals_packed * self.wts_packed).astype(np.float32)
+        return self._host_copy("weighted", self.weighted_vals_tensor)
+
+
+def _slab_grid(row_ptr: np.ndarray, num_rows: int, block_rows: int,
+               tile: int):
+    """Per-slab host arrays of a row-sorted layout with CSR ``row_ptr``:
+    ``(nb, block row of each slab, rank within its block, first source
+    entry, valid length, each block's first entry and first slab)``.
+    Every row block gets >= 1 slab."""
+    nb = max(1, -(-num_rows // block_rows))
+    bounds = row_ptr[np.minimum(np.arange(nb + 1) * block_rows, num_rows)]
+    starts, ends = bounds[:-1], bounds[1:]
+    slabs_per_block = np.maximum(1, -(-(ends - starts) // tile))
+    G = int(slabs_per_block.sum())
+    slab_block = np.repeat(np.arange(nb, dtype=np.int64), slabs_per_block)
+    # Rank of each slab within its block.
+    block_start_slab = np.zeros(nb + 1, dtype=np.int64)
+    np.cumsum(slabs_per_block, out=block_start_slab[1:])
+    rank = np.arange(G, dtype=np.int64) - block_start_slab[slab_block]
+    src_start = starts[slab_block] + rank * tile
+    length = np.clip(ends[slab_block] - src_start, 0, tile)
+    return (nb, slab_block, rank, src_start, length, bounds,
+            block_start_slab * tile)
+
+
+def _pack(columns: Sequence[torch.Tensor], values: torch.Tensor,
+          weights: torch.Tensor | None, order: torch.Tensor | None,
+          row_ptr: np.ndarray, *, nnz: int,
+          num_rows: int, mode: int, input_modes: Sequence[int],
+          block_rows: int, tile: int,
+          num_slabs_cap: int | None) -> PackedModeLayout:
+    """The packing, on the device of ``values``.
+
+    ``columns`` (W index columns), ``values`` and ``weights`` are in
+    source order; ``order`` maps execution order to source order (None:
+    the same order; uploaded for the packing if it lies elsewhere);
+    ``row_ptr`` holds the relabeled rows' CSR offsets in execution order.  Each array is written in place, so besides the
+    result at most two slot-sized index arrays and a slot mask are live.
+    """
+    dev = values.device
+    W = len(columns)
+    nb, slab_block, rank, src_start, length, bounds, slot0 = _slab_grid(
+        row_ptr, num_rows, block_rows, tile)
+    G_real = len(slab_block)
+    G = G_real
+    if num_slabs_cap is not None:
+        if G_real > num_slabs_cap:
+            raise ValueError(
+                f"packing needs {G_real} slabs but the plan caps at "
+                f"{num_slabs_cap}; nnz exceeds the plan's nnz_cap")
+        # Appended zero slabs revisit the last row block: first=0,
+        # values 0, local row 0 — an exact += 0.0.
+        G = num_slabs_cap
+    rb_of = np.full(G, nb - 1, dtype=np.int32)
+    rb_of[:G_real] = slab_block
+    first = np.zeros(G, dtype=np.int32)
+    first[:G_real] = rank == 0
+    real, total = G_real * tile, G * tile
+
+    # Every real slot is written below (padding by the masked fills);
+    # the appended cap slabs are zeroed here.
+    alloc = torch.empty if nnz else torch.zeros
+    slots = {"idx_packed": alloc((W, total), dtype=torch.int32, device=dev),
+             "vals_packed": alloc((1, total), dtype=torch.float32, device=dev),
+             "lrows_packed": alloc((1, total), dtype=torch.int32, device=dev)}
+    if weights is not None:
+        slots["wts_packed"] = alloc((1, total), dtype=torch.float32,
+                                    device=dev)
+    for t in slots.values():
+        t[:, real:].zero_()
+    if nnz:
+        itype = torch.int32 if nnz + tile < 2 ** 31 else torch.int64
+        lane = torch.arange(tile, dtype=itype, device=dev)
+        src = (torch.as_tensor(src_start, dtype=itype, device=dev)[:, None]
+               + lane[None, :]).reshape(-1).clamp_(max=nnz - 1)
+        pad = (lane[None, :] >= torch.as_tensor(
+            length, dtype=itype, device=dev)[:, None]).reshape(-1)
+        # An entry's relabeled row: the rows that end at or before it.
+        ends = torch.as_tensor(row_ptr[1:], dtype=itype, device=dev)
+        lrows = slots["lrows_packed"][0, :real]
+        if itype == torch.int32:
+            torch.searchsorted(ends, src, right=True, out_int32=True,
+                               out=lrows)
+        else:
+            lrows.copy_(torch.searchsorted(ends, src, right=True))
+        lrows.view(G_real, tile).sub_(torch.as_tensor(
+            slab_block * block_rows, dtype=torch.int32, device=dev)[:, None])
+        lrows.masked_fill_(pad, 0)
+        if order is not None:
+            src = torch.index_select(order.to(dev), 0, src)
+        gathers = [(slots["idx_packed"][j], col.to(torch.int32))
+                   for j, col in enumerate(columns)]
+        gathers += [(slots[name][0], arr) for name, arr in
+                    (("vals_packed", values), ("wts_packed", weights))
+                    if arr is not None]
+        for dst, arr in gathers:
+            out = dst[:real]
+            if arr.dtype == out.dtype:
+                torch.index_select(arr, 0, src, out=out)
+            else:
+                out.copy_(torch.index_select(arr, 0, src))
+            out.masked_fill_(pad, 0)
+        del src, pad
+    slots["rb_of"] = torch.as_tensor(rb_of, device=dev)
+
+    return PackedModeLayout(
+        mode=mode,
+        num_rows=num_rows,
+        num_row_blocks=nb,
+        block_rows=block_rows,
+        tile=tile,
+        rb_of=rb_of,
+        first=first,
+        input_modes=tuple(input_modes) or tuple(range(W)),
+        pad_fraction=float(1.0 - (nnz / float(total)) if G else 0.0),
+        num_real_slabs=G_real,
+        slots=slots,
+        block_entry=bounds,
+        block_slot=slot0,
+        nnz=nnz,
+    )
+
+
+def _as_tensor(a) -> torch.Tensor:
+    return a if isinstance(a, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(a))
 
 
 def pack_slabs(
-    input_indices: np.ndarray,   # (nnz, W) int32 — input-mode columns only
-    rows: np.ndarray,            # (nnz,) int32 — relabeled rows, sorted
-    values: np.ndarray,          # (nnz,)
+    input_indices,               # (nnz, W) int32 — input-mode columns only
+    rows,                        # (nnz,) int32 — relabeled rows, sorted
+    values,                      # (nnz,)
     num_rows: int,
     *,
     mode: int = 0,
@@ -82,13 +262,14 @@ def pack_slabs(
     block_rows: int = DEFAULT_BLOCK_ROWS,
     tile: int = DEFAULT_TILE,
     num_slabs_cap: int | None = None,
-    weights: np.ndarray | None = None,
+    weights=None,
 ) -> PackedModeLayout:
     """Pack row-sorted COO data into per-row-block slabs of ``tile`` nonzeros.
 
-    Every row block gets >= 1 slab (an empty block gets one all-padding
-    slab so its output block is zero).  Padding entries carry value 0 and
-    indices 0, contributing nothing.
+    Arrays may be numpy (packed on the CPU) or tensors (packed on their
+    device).  Every row block gets >= 1 slab (an empty block gets one
+    all-padding slab so its output block is zero).  Padding entries carry
+    value 0 and indices 0, contributing nothing.
 
     ``num_slabs_cap`` (from ``core.plan.slab_cap``) pads the grid with
     appended all-zero slabs on the LAST row block, making the array shapes
@@ -97,125 +278,58 @@ def pack_slabs(
     ``weights`` -- optional per-entry weights aligned with ``values``,
     packed into ``wts_packed`` through the same slab placement.
     """
-    nnz = len(values)
-    if nnz and not bool(np.all(rows[:-1] <= rows[1:])):
+    idx, rows, values = (_as_tensor(a) for a in (input_indices, rows, values))
+    nnz = int(values.shape[0])
+    if nnz and not bool((rows[:-1] <= rows[1:]).all()):
         raise ValueError("rows must be sorted (build via core.layout)")
-    W = input_indices.shape[1]
-    nb = max(1, -(-num_rows // block_rows))
-    row_ptr = np.zeros(num_rows + 1, dtype=np.int64)
-    np.cumsum(np.bincount(rows, minlength=num_rows), out=row_ptr[1:])
-    starts = row_ptr[np.minimum(np.arange(nb) * block_rows, num_rows)]
-    ends = row_ptr[np.minimum((np.arange(nb) + 1) * block_rows, num_rows)]
-    lens = ends - starts
-    slabs_per_block = np.maximum(1, -(-lens // tile))
-    G = int(slabs_per_block.sum())
-
-    slab_block = np.repeat(np.arange(nb, dtype=np.int64), slabs_per_block)
-    # Rank of each slab within its block.
-    block_start_slab = np.zeros(nb, dtype=np.int64)
-    np.cumsum(slabs_per_block[:-1], out=block_start_slab[1:])
-    rank = np.arange(G, dtype=np.int64) - block_start_slab[slab_block]
-
-    src_start = starts[slab_block] + rank * tile
-    length = np.clip(ends[slab_block] - src_start, 0, tile)
-    src = src_start[:, None] + np.arange(tile, dtype=np.int64)[None, :]
-    valid = np.arange(tile)[None, :] < length[:, None]
-    src_c = np.minimum(src, max(nnz - 1, 0))
-
     if weights is not None and len(weights) != nnz:
         raise ValueError(
             f"weights length {len(weights)} != nnz {nnz}")
-    wts_p = None
-    if nnz:
-        vals_p = np.where(valid, values[src_c], 0).astype(np.float32)
-        if weights is not None:
-            wts_p = np.where(valid, weights[src_c], 0).astype(np.float32)
-        idx_p = np.where(valid[:, :, None], input_indices[src_c], 0).astype(np.int32)
-        lrow_p = np.where(
-            valid, rows[src_c] - slab_block[:, None] * block_rows, 0
-        ).astype(np.int32)
-        # Invert the (layout entry -> packed slot) placement.
-        flat = (np.arange(G, dtype=np.int64)[:, None] * tile
-                + np.arange(tile, dtype=np.int64)[None, :])
-        val_scatter = np.empty(nnz, dtype=np.int32)
-        val_scatter[src[valid]] = flat[valid].astype(np.int32)
-    else:
-        vals_p = np.zeros((G, tile), np.float32)
-        if weights is not None:
-            wts_p = np.zeros((G, tile), np.float32)
-        idx_p = np.zeros((G, tile, W), np.int32)
-        lrow_p = np.zeros((G, tile), np.int32)
-        val_scatter = np.zeros(0, dtype=np.int32)
-
-    G_real = G
-    if num_slabs_cap is not None:
-        if G > num_slabs_cap:
-            raise ValueError(
-                f"packing needs {G} slabs but the plan caps at "
-                f"{num_slabs_cap}; nnz exceeds the plan's nnz_cap")
-        extra = num_slabs_cap - G
-        if extra:
-            # Appended zero slabs revisit the last row block: first=0,
-            # values 0, local row 0 — an exact += 0.0.
-            slab_block = np.concatenate(
-                [slab_block, np.full(extra, nb - 1, dtype=np.int64)])
-            rank = np.concatenate(
-                [rank, np.ones(extra, dtype=np.int64)])   # never first
-            vals_p = np.concatenate(
-                [vals_p, np.zeros((extra, tile), np.float32)])
-            if wts_p is not None:
-                wts_p = np.concatenate(
-                    [wts_p, np.zeros((extra, tile), np.float32)])
-            idx_p = np.concatenate(
-                [idx_p, np.zeros((extra, tile, W), np.int32)])
-            lrow_p = np.concatenate(
-                [lrow_p, np.zeros((extra, tile), np.int32)])
-            G = num_slabs_cap
-
-    pad = 1.0 - (nnz / float(G * tile)) if G else 0.0
-    return PackedModeLayout(
-        mode=mode,
-        num_rows=num_rows,
-        num_row_blocks=nb,
-        block_rows=block_rows,
-        tile=tile,
-        rb_of=slab_block.astype(np.int32),
-        first=(rank == 0).astype(np.int32),
-        idx_packed=np.ascontiguousarray(
-            idx_p.reshape(G * tile, W).T.astype(np.int32)
-        ),
-        vals_packed=vals_p.reshape(1, G * tile),
-        lrows_packed=lrow_p.reshape(1, G * tile).astype(np.int32),
-        input_modes=tuple(input_modes) or tuple(range(W)),
-        pad_fraction=float(pad),
-        num_real_slabs=G_real,
-        val_scatter=val_scatter,
-        wts_packed=(None if wts_p is None
-                    else wts_p.reshape(1, G * tile).astype(np.float32)),
-    )
+    row_ptr = np.zeros(num_rows + 1, dtype=np.int64)
+    np.cumsum(torch.bincount(rows, minlength=num_rows).cpu().numpy(),
+              out=row_ptr[1:])
+    return _pack([idx[:, j] for j in range(idx.shape[1])], values,
+                  None if weights is None else _as_tensor(weights),
+                  None, row_ptr, nnz=nnz,
+                  num_rows=num_rows, mode=mode, input_modes=input_modes,
+                  block_rows=block_rows, tile=tile,
+                  num_slabs_cap=num_slabs_cap)
 
 
 def pack_layout(layout, *, block_rows: int = DEFAULT_BLOCK_ROWS,
                 tile: int = DEFAULT_TILE,
                 num_slabs_cap: int | None = None,
-                weights: np.ndarray | None = None) -> PackedModeLayout:
-    """Pack a ``core.layout.ModeLayout`` for kernel execution.
+                weights: np.ndarray | None = None,
+                source: tuple | None = None) -> PackedModeLayout:
+    """Pack a ``core.layout.ModeLayout`` for kernel execution, gathering
+    each slot straight from the canonical COO through ``layout.order``.
     ``weights`` are per-entry weights in CANONICAL COO order; the layout's
-    permutation maps them to the packed slots alongside the values."""
+    permutation maps them to the packed slots alongside the values.
+    ``source`` -- ``(columns (N, nnz) int32, values (nnz,) float32)``, the
+    canonical COO on the device to pack on (default: the host tensor's
+    arrays, packed on the CPU).  A layout with host arrays only (as
+    ``repro.core.layout`` builds) is packed from them on the CPU."""
     in_modes = layout.input_modes()
-    return pack_slabs(
-        layout.indices[:, in_modes],
-        layout.rows,
-        layout.values,
-        layout.num_rows,
-        mode=layout.mode,
-        input_modes=in_modes,
-        block_rows=block_rows,
-        tile=tile,
-        num_slabs_cap=num_slabs_cap,
-        weights=(None if weights is None
-                 else np.asarray(weights, np.float32)[layout.perm]),
-    )
+    if not hasattr(layout, "order"):
+        return pack_slabs(
+            layout.indices[:, in_modes], layout.rows, layout.values,
+            layout.num_rows, mode=layout.mode, input_modes=in_modes,
+            block_rows=block_rows, tile=tile, num_slabs_cap=num_slabs_cap,
+            weights=(None if weights is None
+                     else np.asarray(weights, np.float32)[layout.perm]))
+    if source is None:
+        from ..core.layout import coo_columns
+        source = (coo_columns(layout.tensor, "cpu"),
+                  torch.from_numpy(layout.tensor.values))
+    columns, values = source
+    dev = values.device
+    if weights is not None:
+        weights = torch.as_tensor(np.asarray(weights, np.float32), device=dev)
+    return _pack([columns[w] for w in in_modes], values, weights,
+                 layout.order, layout.row_ptr, nnz=layout.nnz,
+                 num_rows=layout.num_rows, mode=layout.mode,
+                 input_modes=in_modes, block_rows=block_rows, tile=tile,
+                 num_slabs_cap=num_slabs_cap)
 
 
 def _packed_tensors(packed: PackedModeLayout, device) -> tuple:

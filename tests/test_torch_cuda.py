@@ -489,3 +489,81 @@ def test_factorized_embedding_gradient_on_card(cuda):
     assert ks.LAUNCHES["mttkrp_slab"] - before == 2
     for g, r in zip(got, ref):
         assert float((g.cpu() - r).abs().max()) <= 1e-5 * float(r.abs().sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kappa", [1, 4])
+def test_plan_made_on_card_is_the_cpu_plan(cuda, kappa):
+    """Planning on the card: about 1,000,000 nonzeros sorted and packed
+    there give the bytes the same code gives on the CPU (which the CPU
+    tests hold to the JAX package's host plan): every copy's ordering and
+    row maps, every packing, the value scatter.  The card plan keeps its
+    packed arrays as the device data; on chicago's shape and nonzero count
+    (kappa 1) planning's peak allocation stays under a call's."""
+    t = random_sparse((6186, 24, 77, 32), 1_000_000, seed=40 + kappa,
+                      distribution="powerlaw")
+    card = make_plan(t, kappa, device=cuda)
+    host = make_plan(t, kappa, device="cpu")
+    for d in range(t.nmodes):
+        a, b = card.packed(d), host.packed(d)
+        assert a.device == cuda and b.device.type == "cpu"
+        for name in ("idx_packed", "vals_packed", "lrows_packed", "rb_of",
+                     "first", "val_scatter"):
+            x, y = getattr(a, name), getattr(b, name)
+            assert x.dtype == y.dtype and np.array_equal(x, y), (d, name)
+        la, lb = card.layouts[d], host.layouts[d]
+        for name in ("perm", "row_perm", "row_ptr", "part_offsets"):
+            assert np.array_equal(getattr(la, name), getattr(lb, name)), name
+        assert card.device_packed(d)[0].data_ptr() == a.slots[
+            "idx_packed"].data_ptr()
+    assert card._source is None
+    if kappa != 1:
+        return
+    R = 32
+    big = random_sparse((6186, 24, 77, 32), 5_330_673, seed=44,
+                        distribution="powerlaw")
+    del card
+    torch.cuda.synchronize(cuda)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    plan = make_plan(big, 1, device=cuda)
+    for d in range(big.nmodes):
+        plan.device_packed(d)
+    torch.cuda.synchronize(cuda)
+    planning = torch.cuda.max_memory_allocated(cuda) - base
+    # What stays is what the plan counts, in the allocator's blocks (a
+    # large array's block may take up to 1 MB of its segment's rest).
+    held = torch.cuda.memory_allocated(cuda) - base
+    assert plan.device_bytes <= held <= 1.02 * plan.device_bytes, (
+        held, plan.device_bytes)
+    cpd_als(big, R, plan=plan, n_iters=5, check_every=5, tol=0.0)  # build
+    torch.cuda.synchronize(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    cpd_als(big, R, plan=plan, n_iters=5, check_every=5, tol=0.0)
+    torch.cuda.synchronize(cuda)
+    call = torch.cuda.max_memory_allocated(cuda) - base
+    assert planning < call, (planning, call)
+
+
+@pytest.mark.cuda
+def test_fit_data_uploads_from_the_plans_page_locked_copy(cuda):
+    """A call through a plan of its tensor uploads its fit data from the
+    plan's page-locked copy: the same bytes, counted the same."""
+    from repro_torch.core import als_device
+
+    t = random_sparse((300, 40, 20), 20_000, seed=45, distribution="powerlaw")
+    plan = make_plan(t, 1, device=cuda)
+    staged = plan.staged_fit_data()
+    assert staged[0].is_pinned() and staged[1].is_pinned()
+    assert plan.staged_fit_data() is staged
+    a = als_device.make_fit_data(t, cuda)
+    b = als_device.make_fit_data(t, cuda, staged)
+    for x, y in zip(a[0] + a[1:], b[0] + b[1:]):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+    state = als_device.init_state_host(t.shape, 4, seed=2)
+    res = cpd_als(t, 4, plan=plan, n_iters=2, init_state=state)
+    state_bytes = sum(np.asarray(a).nbytes for part in state[:2]
+                      for a in part) + state[2].nbytes
+    fit_bytes = t.indices.nbytes + t.nnz * 4 + 4
+    assert res.h2d_bytes == state_bytes + fit_bytes

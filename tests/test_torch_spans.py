@@ -4,8 +4,9 @@ CPU.
 A fused call through the front door opens ``cpd.call`` and inside it
 ``cpd.prepare``, one ``als.window`` per check window (each holding, per
 sweep, ``als.mttkrp`` and ``als.update`` for every mode in order and one
-``als.fit``) and ``cpd.finish``; planning opens ``plan.layouts`` and one
-``plan.pack`` per mode packed.  ``CPDResult.h2d_bytes`` is the summed
+``als.fit``) and ``cpd.finish``; planning opens ``plan.layouts``, one
+``plan.sort`` inside it per mode copy ordered, and one ``plan.pack`` per
+mode packed.  ``CPDResult.h2d_bytes`` is the summed
 size of the arrays the call uploaded.  Under ``torch.profiler`` the same
 spans are profiler records with the same nesting, whether or not a
 Tracer is installed.
@@ -26,7 +27,7 @@ from repro_torch.obs import trace
 RANK = 3
 CALL_SPANS = {"cpd.call", "cpd.prepare", "als.window", "als.mttkrp",
               "als.update", "als.fit", "cpd.finish", "plan.layouts",
-              "plan.pack"}
+              "plan.sort", "plan.pack"}
 
 
 @pytest.fixture(autouse=True)
@@ -95,8 +96,10 @@ def test_plan_spans_pack_once_per_mode():
             for d in range(t.nmodes):
                 plan.packed(d)
     spans = _spans(tr)
-    assert [r["name"] for r in spans] == ["plan.layouts"] + ["plan.pack"] * 4
-    assert [r["args"]["mode"] for r in spans[1:]] == [0, 1, 2, 3]
+    assert [r["name"] for r in spans] == (
+        ["plan.layouts"] + ["plan.sort"] * 4 + ["plan.pack"] * 4)
+    assert [r["args"]["mode"] for r in spans[1:]] == [0, 1, 2, 3] * 2
+    assert [r["name"] for r in _children(spans, spans[0])] == ["plan.sort"] * 4
     # A call that plans for itself does it inside its preparation.
     with trace.capture() as tr:
         cpd_als(t, RANK, n_iters=1, tol=-1.0, device="cpu")
