@@ -289,6 +289,8 @@ def uber_full():
 def reset_launches(ks) -> None:
     for entry in ks.LAUNCHES:
         ks.LAUNCHES[entry] = 0
+    for entry in getattr(ks, "CAPTURES", ()):
+        ks.CAPTURES[entry] = 0
 
 
 def observation_weights(np, nnz: int, seed: int):
@@ -306,6 +308,42 @@ def largest_drop(fits) -> float:
 
 def fit_gap(np, a, b) -> float:
     return float(np.max(np.abs(np.array(a) - np.array(b))))
+
+
+def replay_gaps(np, rep, eager) -> dict:
+    """A replayed call's fits and factors against an eager call's from the
+    same start: the largest gaps relative to the fit and to each factor's
+    largest entry, and whether fits, factors and weights are bitwise."""
+    fits, want = np.array(rep.fits), np.array(eager.fits)
+    return {"fit_rel": float(np.max(np.abs(fits - want) / np.abs(want))),
+            "factor_rel": max(float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
+                              for a, b in zip(rep.factors, eager.factors)),
+            "bitwise": bool(np.array_equal(fits, want)
+                            and np.array_equal(rep.weights, eager.weights)
+                            and all(np.array_equal(a, b) for a, b
+                                    in zip(rep.factors, eager.factors)))}
+
+
+def check_replay(np, ks, name, rep, eager, seg, launches) -> dict:
+    """Gate a second call on a held plan: every sweep replayed from the
+    plan's graphs, 40 counted kernel launches and no capture, the eager
+    call's host reads, fits within 1e-6 and factors within 1e-5 of the
+    eager call's (relative), fits within 1e-5 of the segment backend's."""
+    out = {"launches": launches, "captures": ks.CAPTURES["mttkrp_slab"],
+           "graph_sweeps": rep.graph_sweeps, "host_syncs": rep.host_syncs,
+           **replay_gaps(np, rep, eager),
+           "segment_fit_gap": fit_gap(np, rep.fits, seg.fits)}
+    check(rep.graph_sweeps == rep.iters == 10,
+          f"{name} replay: graph_sweeps {rep.graph_sweeps} of {rep.iters}")
+    check(launches == 40 and out["captures"] == 0,
+          f"{name} replay counted {launches} launches, {out['captures']} captures")
+    check(rep.host_syncs == eager.host_syncs,
+          f"{name} replay host_syncs {rep.host_syncs} != {eager.host_syncs}")
+    check(out["fit_rel"] <= 1e-6 and out["factor_rel"] <= 1e-5,
+          f"{name} replay differs from the eager call: {out}")
+    check(out["segment_fit_gap"] <= 1e-5,
+          f"{name} replay fits differ from segment by {out['segment_fit_gap']}")
+    return out
 
 
 def library_mttkrp(torch, np, indices, shape, d, values, in_f):
@@ -2733,7 +2771,14 @@ def main() -> int:
     res = cpd_als(t, RANK, plan=plan, backend="slab", n_iters=10,
                   check_every=5, device="cuda")
     launches = ks.LAUNCHES["mttkrp_slab"]
-    check(launches == 40, f"main path launched the kernel {launches} times, not 40")
+    captures = ks.CAPTURES["mttkrp_slab"]
+    # The plan's first call runs its 10 sweeps eagerly, then captures the
+    # sweep's graphs (one kernel call per mode, counted as a capture) and
+    # replays them once (one launch per mode).
+    check(launches == 40 + t.nmodes and captures == t.nmodes,
+          f"main path launched the kernel {launches} times, not 40 + "
+          f"{t.nmodes}, and counted {captures} captures, not {t.nmodes}")
+    check(res.graph_sweeps == 0, f"main path replayed {res.graph_sweeps} sweeps")
     check(res.host_syncs == 3, f"host_syncs {res.host_syncs} != 3")
     check(res.iters == 10 and len(res.fits) == 10, "main path did not run 10 sweeps")
     check(all(np.isfinite(F).all() and F.shape == (I, RANK)
@@ -2742,6 +2787,12 @@ def main() -> int:
                   check_every=5, device="cuda")
     gap = float(np.max(np.abs(np.array(res.fits) - np.array(seg.fits))))
     check(gap <= 1e-5, f"slab fits differ from segment fits by {gap}")
+    # A second call on the plan from the same start replays the graphs.
+    reset_launches(ks)
+    rep = cpd_als(t, RANK, plan=plan, backend="slab", n_iters=10,
+                  check_every=5, device="cuda")
+    replay = check_replay(np, ks, "main path", rep, res, seg,
+                          ks.LAUNCHES["mttkrp_slab"])
 
     # One window under sync-debug "error": it must queue without a host read.
     shapes = tuple(t.shape)
@@ -2764,7 +2815,8 @@ def main() -> int:
     rec = cpd_als(rec_t, 4, backend="slab", n_iters=50, kappa=4, tol=1e-9,
                   device="cuda")
     check(rec.fits[-1] >= 0.999, f"low-rank recovery fit {rec.fits[-1]}")
-    emit({"phase": "main_path", "launches": launches, "host_syncs": res.host_syncs,
+    emit({"phase": "main_path", "launches": launches, "captures": captures,
+          "replay": replay, "host_syncs": res.host_syncs,
           "iters": res.iters, "fits": res.fits, "segment_fits": seg.fits,
           "fit_gap": gap, "total_s": res.total_seconds,
           "segment_total_s": seg.total_seconds, "sync_free_window": True,
@@ -2779,14 +2831,21 @@ def main() -> int:
     reset_launches(ks)
     nn = cpd_als(t, RANK, backend="slab", method="nncp", **mkw)
     nn_launches = dict(ks.LAUNCHES)
-    check(nn_launches["mttkrp_slab"] == 40,
-          f"nncp launched the kernel {nn_launches['mttkrp_slab']} times, not 40")
+    nn_captures = ks.CAPTURES["mttkrp_slab"]
+    check(nn_launches["mttkrp_slab"] == 40 + t.nmodes and nn_captures == t.nmodes,
+          f"nncp launched the kernel {nn_launches['mttkrp_slab']} times, not "
+          f"40 + {t.nmodes}, and counted {nn_captures} captures, not {t.nmodes}")
+    check(nn.graph_sweeps == 0, f"nncp replayed {nn.graph_sweeps} sweeps")
     check(nn.host_syncs == 3, f"nncp host_syncs {nn.host_syncs} != 3")
     check(all(bool((F >= 0).all()) for F in nn.factors), "nncp factor < 0")
     check(largest_drop(nn.fits) <= 1e-6, f"nncp fit fell: {nn.fits}")
     nn_seg = cpd_als(t, RANK, backend="segment", method="nncp", **mkw)
     nn_gap = fit_gap(np, nn.fits, nn_seg.fits)
     check(nn_gap <= 1e-5, f"nncp slab fits differ from segment by {nn_gap}")
+    reset_launches(ks)
+    nn_rep = cpd_als(t, RANK, backend="slab", method="nncp", **mkw)
+    nn_replay = check_replay(np, ks, "nncp", nn_rep, nn, nn_seg,
+                             ks.LAUNCHES["mttkrp_slab"])
 
     w = observation_weights(np, t.nnz, seed=11)
     reset_launches(ks)
@@ -2823,7 +2882,8 @@ def main() -> int:
     check(bool(mwin_ok), "masked solve flagged in the sync-free window")
     check(abs(float(mwin_fits[-1]) - mk.fits[4]) <= 1e-5, "masked window fit differs")
     emit({"phase": "methods", "tensor": "chicago", "rank": RANK, "sweeps": 10,
-          "nncp": {"launches": nn_launches, "host_syncs": nn.host_syncs,
+          "nncp": {"launches": nn_launches, "captures": nn_captures,
+                   "replay": nn_replay, "host_syncs": nn.host_syncs,
                    "fits": nn.fits, "segment_fits": nn_seg.fits, "fit_gap": nn_gap,
                    "largest_drop": largest_drop(nn.fits),
                    "min_factor": float(min(F.min() for F in nn.factors)),
@@ -3199,9 +3259,10 @@ def main() -> int:
     # Launches per phase that ran the entry, each counted from 0 in its phase.
     service = new_phases["service"]
     emit({"kernels": [
-        kernel_entry("mttkrp_slab", per_mode, launches,
+        kernel_entry("mttkrp_slab", per_mode, launches + replay["launches"],
                      max(m["max_abs_err"] for m in modes),
-                     {"main_path": launches, "methods": nn_launches["mttkrp_slab"],
+                     {"main_path": launches + replay["launches"],
+                      "methods": nn_launches["mttkrp_slab"] + nn_replay["launches"],
                       "stream": new_phases["stream"]["launches"],
                       "plan": plan_out["launches"],
                       "embed": embed_out["launches"]["mttkrp_slab"],

@@ -55,12 +55,23 @@ kind ``sweep_block``), and ``sweep_trace_stats()`` is the ledger's view
 of the sweep blocks: the port's counterpart of the reference's trace
 counts, where a build takes the place of an XLA trace.
 
+Issuing a sweep.  The same sweep steps (``build_sweep_steps``) run in one
+of two ways.  Eagerly: ``build_lane_sweep`` dispatches each operation,
+about a hundred a sweep.  Or, where ``uses_graphs`` holds (a card, a
+plan the caller holds, a method whose sweep reads nothing on the host),
+as replays of CUDA graphs captured once per plan (``SweepGraphs``): one
+graph per span below, 2N + 1 replays a sweep.  Both open their spans
+through ``issue_sweep``.  The arithmetic, the kernels, their launch
+shapes and the host read a window are the same either way;
+``CPDResult.graph_sweeps`` counts the sweeps replayed.
+
 Spans (``obs.trace``, in a Tracer and a recording ``torch.profiler``):
 ``cpd.prepare`` (the uploads, mode data, fit data and block lookups, with
-``h2d_bytes``), ``als.window`` per window, inside it per sweep
-``als.mttkrp`` and ``als.update`` per mode and one ``als.fit`` (its
-``source``: "mttkrp" for the folded fit, "nonzeros" for the weighted
-one), then ``cpd.finish`` (the fits read, the download, the result).
+``h2d_bytes``), ``als.window`` per window (``graph``: replayed or not),
+inside it per sweep ``als.mttkrp`` and ``als.update`` per mode and one
+``als.fit`` (its ``source``: "mttkrp" for the folded fit, "nonzeros" for
+the weighted one), then ``cpd.finish`` (the fits read, the download, the
+result).
 """
 from __future__ import annotations
 
@@ -74,6 +85,7 @@ import torch
 from ..convert import state_from_reference
 from ..device import resolve_device
 from ..kernels import ref as kref
+from ..kernels import mttkrp_slab as slab_kernels
 from ..kernels.mttkrp_slab import (mttkrp_slab, mttkrp_slab_batched,
                                    mttkrp_slab_valued, scatter_slab_values)
 from ..obs import clock as obs_clock
@@ -472,6 +484,101 @@ def _method_spec(method: str):
 # ---------------------------------------------------------------------------
 
 
+@dataclasses.dataclass(frozen=True)
+class SweepSteps:
+    """The arithmetic of one sweep over lanes, in the pieces its spans
+    hold; ``factors``, ``grams``, ``weights`` and ``oks`` are per-lane
+    lists that ``update`` advances in place (a lane's factor and gram
+    lists are rebound to new tensors, never written into).
+
+      values(d, mode_data_all, factors, weights, fit_data) -> value lanes
+          (None unless the method's MTTKRP runs on fresh values)
+      mttkrp(d, mode_data, factors, values) -> [M per lane]   (als.mttkrp)
+      update(d, Ms, factors, grams, weights, oks, rescue)     (als.update)
+      fit(Ms, factors, grams, weights, fit_data) -> [fit]     (als.fit)
+
+    ``build_lane_sweep`` issues them eagerly; ``SweepGraphs`` captures
+    one lane's ``mttkrp``, ``update`` and ``fit`` as CUDA graphs."""
+
+    values: Callable
+    mttkrp: Callable
+    update: Callable
+    fit: Callable
+    weighted: bool
+
+
+def build_sweep_steps(backend: str, nmodes: int, rank: int,
+                      shapes: tuple[int, ...], slab_meta: tuple | None,
+                      solver: str, method: str = "cp", batched: bool = False,
+                      axis=None, collectives: tuple[str, ...] | None = None
+                      ) -> SweepSteps:
+    """The steps of ``build_lane_sweep``'s sweep (see ``SweepSteps``)."""
+    spec = _method_spec(method)
+    valued = spec is not None and spec.valued_mode_data
+    ctx = make_sweep_context(backend, nmodes, rank, shapes, slab_meta, solver,
+                             valued, batched, axis, collectives)
+    method_update = spec.update if spec is not None and spec.update else cp_update
+    values_for = spec.mttkrp_values if valued else None
+    if valued and axis is not None:
+        if spec.shard_values is None:
+            raise NotImplementedError(
+                f"method {method!r} has no values at a rank's shard")
+        shard_values = spec.shard_values
+    weighted = spec is not None and spec.weighted_fit
+
+    def values(d, mode_data_all, factors, weights, fit_data):
+        if valued and axis is not None:
+            return [shard_values(ctx, factors[0], weights[0], mode_data_all[d])]
+        if valued:
+            return [values_for(ctx, F, w, fd)
+                    for F, w, fd in zip(factors, weights, fit_data)]
+        return None
+
+    def update(d, Ms, factors, grams, weights, oks, rescue):
+        for b, M in enumerate(Ms):
+            Yd, lam, ok = method_update(ctx, d, M, factors[b], grams[b],
+                                        weights[b], rescue)
+            factors[b][d] = Yd
+            grams[b][d] = Yd.T @ Yd
+            weights[b] = lam
+            if ok is not None:
+                oks[b].append(ok)
+
+    def fit(Ms, factors, grams, weights, fit_data):
+        # Ms is the last mode's MTTKRP, one (I_N, R) output per lane.
+        if weighted:
+            return [ctx.weighted_fit(F, G, w, fd) for F, G, w, fd
+                    in zip(factors, grams, weights, fit_data)]
+        return [ctx.folded_fit(M, F, G, w, fd) for M, F, G, w, fd
+                in zip(Ms, factors, grams, weights, fit_data)]
+
+    return SweepSteps(values=values,
+                      mttkrp=ctx.mttkrp_valued if valued else ctx.one_mttkrp,
+                      update=update, fit=fit, weighted=weighted)
+
+
+def issue_sweep(tr, nmodes: int, lanes: int, weighted: bool, mttkrp,
+                update, fit, values=None):
+    """One sweep's spans around its steps, for both ways of issuing it
+    (``build_lane_sweep``'s eager steps, ``SweepGraphs``' replays): per
+    mode ``values(d)`` outside the spans, ``mttkrp(d)`` in ``als.mttkrp``
+    and ``update(d)`` in ``als.update``, then ``fit()`` in ``als.fit``,
+    whose value it returns.  ``tr`` is ``obs_trace.sink()``."""
+    for d in range(nmodes):
+        if values is not None:
+            values(d)
+        with (obs_trace.NULL if tr is None else
+              tr.span("als.mttkrp", cat="als", mode=d, lanes=lanes)):
+            mttkrp(d)
+        with (obs_trace.NULL if tr is None else
+              tr.span("als.update", cat="als", mode=d)):
+            update(d)
+    with (obs_trace.NULL if tr is None else
+          tr.span("als.fit", cat="als",
+                  source="nonzeros" if weighted else "mttkrp")):
+        return fit()
+
+
 def build_lane_sweep(backend: str, nmodes: int, rank: int,
                      shapes: tuple[int, ...], slab_meta: tuple | None,
                      solver: str, method: str = "cp", batched: bool = False,
@@ -484,58 +591,28 @@ def build_lane_sweep(backend: str, nmodes: int, rank: int,
     without a solve).  No state is updated in place, so a caller may keep
     the previous one.  With ``axis`` the one lane is this rank's shard
     (see ``build_sweep_fn``)."""
-    spec = _method_spec(method)
-    valued = spec is not None and spec.valued_mode_data
-    ctx = make_sweep_context(backend, nmodes, rank, shapes, slab_meta, solver,
-                             valued, batched, axis, collectives)
-    update = spec.update if spec is not None and spec.update else cp_update
-    values_for = spec.mttkrp_values if valued else None
-    if valued and axis is not None:
-        if spec.shard_values is None:
-            raise NotImplementedError(
-                f"method {method!r} has no values at a rank's shard")
-        shard_values = spec.shard_values
-    mttkrp = ctx.mttkrp_valued if valued else ctx.one_mttkrp
-    weighted = spec is not None and spec.weighted_fit
+    steps = build_sweep_steps(backend, nmodes, rank, shapes, slab_meta,
+                              solver, method, batched, axis, collectives)
 
     def sweep(states, mode_data_all, fit_data, rescue=False):
-        tr = obs_trace.sink()
         factors = [list(st[0]) for st in states]
         grams = [list(st[1]) for st in states]
         weights = [st[2] for st in states]
         oks = [[] for _ in states]
-        for d in range(nmodes):
-            vals = None
-            if valued and axis is not None:
-                vals = [shard_values(ctx, factors[0], weights[0],
-                                     mode_data_all[d])]
-            elif valued:
-                vals = [values_for(ctx, F, w, fd)
-                        for F, w, fd in zip(factors, weights, fit_data)]
-            with (obs_trace.NULL if tr is None else
-                  tr.span("als.mttkrp", cat="als", mode=d,
-                          lanes=len(states))):
-                Ms = mttkrp(d, mode_data_all[d], factors, vals)
-            with (obs_trace.NULL if tr is None else
-                  tr.span("als.update", cat="als", mode=d)):
-                for b, M in enumerate(Ms):
-                    Yd, lam, ok = update(ctx, d, M, factors[b], grams[b],
-                                         weights[b], rescue)
-                    factors[b][d] = Yd
-                    grams[b][d] = Yd.T @ Yd
-                    weights[b] = lam
-                    if ok is not None:
-                        oks[b].append(ok)
-        # Ms is the last mode's MTTKRP, one (I_N, R) output per lane.
-        with (obs_trace.NULL if tr is None else
-              tr.span("als.fit", cat="als",
-                      source="nonzeros" if weighted else "mttkrp")):
-            if weighted:
-                fits = [ctx.weighted_fit(F, G, w, fd) for F, G, w, fd
-                        in zip(factors, grams, weights, fit_data)]
-            else:
-                fits = [ctx.folded_fit(M, F, G, w, fd) for M, F, G, w, fd
-                        in zip(Ms, factors, grams, weights, fit_data)]
+        vals = Ms = None
+
+        def values(d):
+            nonlocal vals
+            vals = steps.values(d, mode_data_all, factors, weights, fit_data)
+
+        def mttkrp(d):
+            nonlocal Ms
+            Ms = steps.mttkrp(d, mode_data_all[d], factors, vals)
+
+        fits = issue_sweep(
+            obs_trace.sink(), nmodes, len(states), steps.weighted, mttkrp,
+            lambda d: steps.update(d, Ms, factors, grams, weights, oks, rescue),
+            lambda: steps.fit(Ms, factors, grams, weights, fit_data), values)
         states = [(tuple(F), tuple(G), w)
                   for F, G, w in zip(factors, grams, weights)]
         return states, fits, [torch.stack(o).all() if o else None for o in oks]
@@ -610,6 +687,181 @@ def _build_sweep_block(backend: str, nmodes: int, rank: int,
         (backend, nmodes, rank, shapes, slab_meta, solver, "block", block,
          "method", method),
         run_block)
+
+
+def uses_graphs(device, caller_plan: bool, method: str) -> bool:
+    """Whether a fused call issues its sweeps as replays of captured CUDA
+    graphs (``SweepGraphs``) rather than eagerly: on a CUDA device, with
+    a plan the caller holds (the capture, made once per plan, pays off
+    over the plan's later calls), and for a method whose sweep reads
+    nothing on the host (the folded fit: not the masked method's weighted
+    fit and valued MTTKRP).  Mesh calls never reach ``cpd_als_fused``
+    (``core.distributed`` runs its own ``dist_block`` windows), so they
+    stay eager."""
+    if torch.device(device).type != "cuda" or not caller_plan:
+        return False
+    spec = _method_spec(method)
+    return spec is None or not (spec.weighted_fit or spec.valued_mode_data)
+
+
+class _Graph:
+    """A CUDA graph in memory pool ``pool``.  A kernel wrapper called
+    under ``capture`` counts in ``mttkrp_slab.CAPTURES``; each ``replay``
+    adds those calls to ``mttkrp_slab.LAUNCHES``, since it launches the
+    kernels without the wrapper."""
+
+    def __init__(self, pool):
+        self.graph = torch.cuda.CUDAGraph()
+        self.pool = pool
+        self.counts = []
+
+    def capture(self, fn, *args):
+        """Capture ``fn(*args)``; what it returns are the buffers each
+        replay writes."""
+        before = dict(slab_kernels.CAPTURES)
+        with torch.cuda.graph(self.graph, pool=self.pool,
+                              capture_error_mode="thread_local"):
+            out = fn(*args)
+        self.counts = [(k, n - before[k])
+                       for k, n in slab_kernels.CAPTURES.items()
+                       if n != before[k]]
+        return out
+
+    def replay(self) -> None:
+        self.graph.replay()
+        for k, n in self.counts:
+            slab_kernels.LAUNCHES[k] += n
+
+
+def graph_pool_bytes(pool, device) -> int:
+    """Bytes of the allocator's segments that belong to a graph memory
+    pool on ``device``: reserved while its graphs live, written by their
+    replays, and not seen by ``torch.cuda.memory_allocated`` once the
+    capture's temporaries are freed into the pool."""
+    pool, index = tuple(pool), torch.device(device).index or 0
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if seg.get("device") == index
+               and tuple(seg.get("segment_pool_id", ())) == pool)
+
+
+class SweepGraphs:
+    """One lane's sweep as CUDA graphs, one per span the sweep has:
+    ``als.mttkrp`` and ``als.update`` per mode and ``als.fit``, 2N + 1
+    graphs in one memory pool, captured from ``build_sweep_steps``'s
+    steps.  The graphs read and advance a state held in static buffers
+    (``load`` fills them), so a window of k sweeps is k replays of the
+    chain, each inside its span (``issue_sweep``).  ``fits`` holds the
+    last fits, the newest last: a ring as long as the longest window yet,
+    whose graph is captured again when a longer window comes.  ``ok`` is
+    the solves' flag since the last ``load``.
+
+    Capture happens once, after a call has run the sweep eagerly on the
+    same plan (the slab launcher's build and shared-memory attributes,
+    the BLAS and solver handles are then in place).  cuBLAS keeps one
+    workspace per stream, and a capture runs on a side stream, whose
+    workspace comes from the graphs' pool.  The workspaces are dropped
+    after the capture: the side stream's stays reserved in the pool for
+    the replays, and the eager stream's is made again only by a later
+    eager BLAS call.  ``pool_bytes`` counts the pool (the static buffers
+    are ordinary allocations).  The buffers are the plan's: its graphs
+    serve one call at a time."""
+
+    def __init__(self, steps: SweepSteps, mode_data_all, state, norm_x_sq,
+                 ring: int):
+        self.device = state[2].device
+        self.nmodes = len(state[0])
+        self._steps = steps
+        self._leaves = [torch.empty_like(t) for t in (*state[0], *state[1],
+                                                      state[2])]
+        self._start = None
+        self.norm_x_sq = torch.empty((), dtype=torch.float32,
+                                     device=self.device)
+        self.ok = torch.ones((), dtype=torch.bool, device=self.device)
+        self.solves = False
+        self.load(state)
+        self.norm_x_sq.copy_(norm_x_sq)
+        F, G, w = self.state()
+
+        def advance(d, M):
+            factors, grams, weights, oks = [list(F)], [list(G)], [w], [[]]
+            steps.update(d, [M], factors, grams, weights, oks, False)
+            F[d].copy_(factors[0][d])
+            G[d].copy_(grams[0][d])
+            w.copy_(weights[0])
+            for ok in oks[0]:
+                self.ok.logical_and_(ok)
+                self.solves = True
+
+        self._pool = torch.cuda.graph_pool_handle()
+        self._mttkrp, self._update = [], []
+        for d in range(self.nmodes):
+            self._mttkrp.append(_Graph(self._pool))
+            self._update.append(_Graph(self._pool))
+            M = self._mttkrp[d].capture(steps.mttkrp, d, mode_data_all[d],
+                                        [list(F)], None)[0]
+            self._update[d].capture(advance, d, M)
+        # The last mode's output stays for the fit; the others' blocks
+        # went back to the pool once their update was captured.
+        self._m_last = M
+        self._capture_fit(ring)
+        # One replay uploads each graph before a measured one; its kernel
+        # launches count as any replay's.
+        self.sweep(None)
+
+    def _capture_fit(self, ring: int) -> None:
+        F, G, w = self.state()
+        self.fits = torch.zeros((ring,), dtype=torch.float32,
+                                device=self.device)
+
+        def fit(M):
+            f = self._steps.fit([M], [F], [G], [w], [(self.norm_x_sq,)])[0]
+            self.fits.copy_(torch.cat([self.fits[1:], f.reshape(1)]))
+
+        self._fit = _Graph(self._pool)
+        self._fit.capture(fit, self._m_last)
+        torch._C._cuda_clearCublasWorkspaces()
+        self.pool_bytes = graph_pool_bytes(self._pool, self.device)
+
+    def _as_state(self, leaves):
+        N = self.nmodes
+        return tuple(leaves[:N]), tuple(leaves[N:2 * N]), leaves[2 * N]
+
+    def state(self):
+        """The static state the graphs advance (not a copy)."""
+        return self._as_state(self._leaves)
+
+    def load(self, state) -> None:
+        """Copy ``state`` into the static buffers, clear ``ok`` and drop
+        the last call's window start."""
+        factors, grams, weights = state
+        torch._foreach_copy_(self._leaves, [*factors, *grams, weights])
+        self.ok.fill_(True)
+        self._start = None
+
+    def window_start(self):
+        """A copy of the static state, for the eager rescue of a window
+        whose solves failed.  Its buffers are made at a call's first
+        window, after the fit data's upload, and live until the next
+        ``load``."""
+        if self._start is None:
+            self._start = [torch.empty_like(t) for t in self._leaves]
+        torch._foreach_copy_(self._start, self._leaves)
+        return self._as_state(self._start)
+
+    def sweep(self, tr) -> None:
+        """Replay one sweep, each graph inside its span of ``tr``."""
+        issue_sweep(tr, self.nmodes, 1, False,
+                    lambda d: self._mttkrp[d].replay(),
+                    lambda d: self._update[d].replay(), self._fit.replay)
+
+    def run_window(self, k: int, tr):
+        """``k`` sweeps from the static state: ``(fits (k,), ok)``, the
+        fits a copy, ``ok`` the static flag (None without a solve)."""
+        if k > self.fits.numel():
+            self._capture_fit(k)
+        for _ in range(k):
+            self.sweep(tr)
+        return self.fits[-k:].clone(), self.ok if self.solves else None
 
 
 def sweep_cache_stats():
@@ -772,11 +1024,20 @@ def cpd_als_fused(
     is of this tensor and on a card) and, on the coo backend without a
     plan, the COO arrays.  A plan's device arrays are uploaded once per
     plan (cached on it) and not counted, also where this call built the
-    plan."""
+    plan.
+
+    Where ``uses_graphs`` holds (a card, the caller's ``plan``, cp or
+    nncp), the plan's first such call runs eagerly and then captures the
+    sweep as CUDA graphs, cached on the plan (``SweepGraphs``); every
+    later call replays them, window by window, with the same host read a
+    window.  A window whose solves failed reruns eagerly from its start
+    with the rescue.  ``CPDResult.graph_sweeps`` counts the sweeps
+    replayed."""
     t_start = obs_clock.now()
     dev = resolve_device(device)
     N = tensor.nmodes
     check_every = max(1, int(check_every))
+    graphed = uses_graphs(dev, plan is not None, method)
     tr = obs_trace.sink()
     with (obs_trace.NULL if tr is None else
           tr.span("cpd.prepare", cat="cpd")) as prep:
@@ -816,6 +1077,15 @@ def cpd_als_fused(
             collect = (collect_structural_mode_data if structural
                        else _collect_mode_data)
             mode_data_all, slab_meta = collect(plan, backend, rank)
+        shapes = tuple(int(s) for s in tensor.shape)
+        graphs_key = ((backend, N, rank, shapes, slab_meta, solver, method)
+                      if graphed else None)
+        graphs = plan._graphs.get(graphs_key) if graphed else None
+        if graphs is not None:
+            # The state moves into the graphs' buffers before the fit
+            # data's upload, so the call holds one copy of it there.
+            graphs.load(state)
+            state = None
         if spec is not None and spec.make_fit_data is not None:
             fit_data = spec.make_fit_data(tensor, weights, dev)
         else:
@@ -823,8 +1093,9 @@ def cpd_als_fused(
                 tensor, dev, None if plan is None or plan.tensor is not tensor
                 else plan.staged_fit_data())
         h2d_bytes += _nbytes(fit_data)
+        if graphs is not None:
+            graphs.norm_x_sq.copy_(fit_data[-1])
 
-        shapes = tuple(int(s) for s in tensor.shape)
         n_blocks, rem = divmod(n_iters, check_every)
         sweep_k = _build_sweep_block(backend, N, rank, shapes, slab_meta,
                                      solver, check_every,
@@ -835,17 +1106,23 @@ def cpd_als_fused(
 
     fits_dev: list = []
     host_syncs = 0
+    graph_sweeps = 0
     last_fit = -np.inf
     it = 0
     for b in range(n_blocks + (1 if rem else 0)):
         k = check_every if b < n_blocks else rem
         fn = sweep_k if b < n_blocks else sweep_rem
-        start = state
         # A host span per window (queueing and its host read) when tracing.
         with (obs_trace.NULL if tr is None else
               tr.span("als.window", cat="als", backend=backend,
-                      method=method, window=b, sweeps=k)):
-            state, fits_blk, ok = fn(start, mode_data_all, fit_data)
+                      method=method, window=b, sweeps=k,
+                      graph=graphs is not None)):
+            if graphs is None:
+                start = state
+                state, fits_blk, ok = fn(start, mode_data_all, fit_data)
+            else:
+                start = graphs.window_start()
+                fits_blk, ok = graphs.run_window(k, tr)
             # The only in-window host sync: the last fit and the solve flag.
             if ok is None:
                 f, healthy = float(fits_blk[-1]), True
@@ -858,6 +1135,10 @@ def cpd_als_fused(
                                         rescue=True)
                 f = float(fits_blk[-1])
                 host_syncs += 1
+                if graphs is not None:
+                    graphs.load(state)
+            elif graphs is not None:
+                graph_sweeps += k
         fits_dev.append(fits_blk)
         it += k
         if verbose:
@@ -868,8 +1149,10 @@ def cpd_als_fused(
 
     with obs_trace.NULL if tr is None else tr.span("cpd.finish", cat="cpd"):
         host_syncs += 1                         # final materialization
+        if graphs is not None:
+            state = graphs.state()
         fits = torch.cat(fits_dev).tolist() if fits_dev else []
-        return CPDResult(
+        result = CPDResult(
             factors=[F.cpu().numpy() for F in state[0]],
             weights=state[2].cpu().numpy().astype(np.float64),
             fits=fits,
@@ -880,4 +1163,14 @@ def cpd_als_fused(
             engine="fused",
             method=method,
             h2d_bytes=h2d_bytes,
+            graph_sweeps=graph_sweeps,
         )
+    if graphed and graphs is None:
+        # The capture, after the call's eager run and with its fit data
+        # and fits released: the plan's first call of this rank and method.
+        norm_x_sq, fit_data = fit_data[-1], None
+        plan._graphs[graphs_key] = SweepGraphs(
+            build_sweep_steps(backend, N, rank, shapes, slab_meta, solver,
+                              method),
+            mode_data_all, state, norm_x_sq, check_every)
+    return result

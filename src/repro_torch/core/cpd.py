@@ -39,6 +39,7 @@ class CPDResult:
     engine: str = "host"          # which ALS engine produced this result
     method: str = "cp"
     h2d_bytes: int = 0            # bytes the fused call uploaded
+    graph_sweeps: int = 0         # sweeps replayed from captured CUDA graphs
 
     def reconstruct_at(self, indices: np.ndarray) -> np.ndarray:
         acc = np.ones((indices.shape[0], len(self.weights)))

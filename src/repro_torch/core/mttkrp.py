@@ -81,6 +81,19 @@ class MTTKRPPlan:
     _dev_packed: dict[int, tuple] = dataclasses.field(default_factory=dict)
     _dev_structural: dict[tuple, tuple] = dataclasses.field(default_factory=dict)
     _dev_coo: tuple | None = None
+    # The fused engine's captured sweeps (``als_device.SweepGraphs``), by
+    # sweep function (backend, rank, solver, method): they read this
+    # plan's device arrays and die with it.  Not plan data:
+    # ``device_bytes`` leaves them out; ``graph_pool_bytes`` counts them.
+    _graphs: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def graph_pool_bytes(self) -> int:
+        """Bytes the plan's captured sweeps hold in their graphs' memory
+        pools (``SweepGraphs.pool_bytes``): reserved on the plan's device
+        while the plan lives and written by every replay, but not seen by
+        ``torch.cuda.memory_allocated`` or its peak."""
+        return sum(g.pool_bytes for g in self._graphs.values())
 
     @property
     def device_bytes(self) -> int:

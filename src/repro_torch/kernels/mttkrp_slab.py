@@ -22,6 +22,15 @@ each adds one to its ``LAUNCHES`` count per launch:
   and rank in one launch (the TPU path's ``jax.vmap`` in the batched
   service).  Lane b is bitwise ``mttkrp_slab`` on lane b's packing.
 
+A call made while a CUDA graph is captured launches nothing: it adds one
+to ``CAPTURES`` instead.  The graph's replays launch the kernel without
+the wrapper, so the code that replays it adds the captured calls to
+``LAUNCHES`` at each replay (the fused engine's captured sweeps,
+``core.als_device.SweepGraphs``).  The C launcher allocates nothing, synchronises nothing and launches both
+passes on the stream it is given (the current one), so a capture records
+them; its first-use work (the build, the shared-memory attribute) must
+have run before.
+
 For CPU tensors each wrapper runs its plain PyTorch version instead
 (``mttkrp_slab_plain``, ``mttkrp_slab_batched_plain``: gather, Hadamard,
 ``index_add_``); that is the only way a wrapper reaches them.  The CPU
@@ -47,9 +56,11 @@ from typing import Sequence
 import numpy as np
 import torch
 
-# Kernel launches made through each wrapper in this process (CPU calls do
-# not count).
+# Kernel launches made through each wrapper in this process, replays of a
+# captured call included (CPU calls do not count), and the wrapper calls
+# made while a CUDA graph was captured.
 LAUNCHES = {"mttkrp_slab": 0, "mttkrp_slab_valued": 0, "mttkrp_slab_batched": 0}
+CAPTURES = dict.fromkeys(LAUNCHES, 0)
 
 THREADS = 256          # target threads per pass-one block
 MAX_THREADS = 1024     # hardware limit per block
@@ -362,7 +373,8 @@ def _check_factors(factors, device, ndim):
 def _launch(entry, idx_packed, vals_packed, lrows_packed, factors, chunks,
             *, batch, num_row_blocks, block_rows, tile, rank_block, slots):
     """Check what every entry shares, launch pass one and pass two on the
-    current stream and count the launch under ``entry``.  ``batch=None``
+    current stream and count the launch under ``entry`` (in ``CAPTURES``
+while the stream is captured).  ``batch=None``
     is one packing; an int B means every array carries a leading lane
     dimension of B, and the lane strides follow from the shapes."""
     device = idx_packed.device
@@ -401,7 +413,10 @@ def _launch(entry, idx_packed, vals_packed, lrows_packed, factors, chunks,
                      factors, chunks, batch=batch, num_row_blocks=num_row_blocks,
                      block_rows=block_rows, tile=tile, rank_block=rank_block,
                      slots=slots)
-    LAUNCHES[entry] += 1
+    if torch.cuda.is_current_stream_capturing():
+        CAPTURES[entry] += 1
+    else:
+        LAUNCHES[entry] += 1
     return out
 
 

@@ -16,6 +16,8 @@ another order, so they may differ by a few ulps of each row's absolute
 sum (``sum |val * prod F|``), more where terms cancel.  Outputs are held
 to 1e-5 of the largest absolute sum, as ``chip_smoke.py`` does.
 """
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -117,10 +119,13 @@ def test_sweep_writes_no_nnz_by_rank_array_on_card(cuda):
     R = 32
     t = random_sparse((2000, 300, 100), 1_000_000, seed=21,
                       distribution="powerlaw")
+    # The build and the window, on a plan of the call's own, so that the
+    # measured call is the held plan's first: its sweeps run eagerly, then
+    # are captured as graphs, and the peak covers both.
+    cpd_als(t, R, n_iters=1, tol=-1.0)
     plan = make_plan(t, 1, device=cuda)
     packed = sum(a.nbytes for d in range(t.nmodes)
                  for a in plan.device_packed(d) if isinstance(a, torch.Tensor))
-    cpd_als(t, R, plan=plan, n_iters=1, tol=-1.0)  # the build, the window
     torch.cuda.synchronize(cuda)
     others = torch.cuda.memory_allocated(cuda) - packed
     torch.cuda.reset_peak_memory_stats(cuda)
@@ -523,6 +528,11 @@ def test_plan_made_on_card_is_the_cpu_plan(cuda, kappa):
     big = random_sparse((6186, 24, 77, 32), 5_330_673, seed=44,
                         distribution="powerlaw")
     del card
+    # A call before the base, so that the base holds the BLAS workspace
+    # of the card's stream, which the measured call uses.  Garbage of
+    # earlier tests collected now, not freed below the base in mid-call.
+    cpd_als(t, R, n_iters=1, tol=0.0)
+    gc.collect()
     torch.cuda.synchronize(cuda)
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated(cuda)
@@ -537,9 +547,10 @@ def test_plan_made_on_card_is_the_cpu_plan(cuda, kappa):
     held = torch.cuda.memory_allocated(cuda) - base
     assert plan.device_bytes <= held <= 1.02 * plan.device_bytes, (
         held, plan.device_bytes)
-    cpd_als(big, R, plan=plan, n_iters=5, check_every=5, tol=0.0)  # build
     torch.cuda.synchronize(cuda)
     torch.cuda.reset_peak_memory_stats(cuda)
+    # The plan's first call: eager sweeps, then the capture of its graphs
+    # (the peak of a held plan's calls; its replays allocate less).
     cpd_als(big, R, plan=plan, n_iters=5, check_every=5, tol=0.0)
     torch.cuda.synchronize(cuda)
     call = torch.cuda.max_memory_allocated(cuda) - base
@@ -567,3 +578,135 @@ def test_fit_data_uploads_from_the_plans_page_locked_copy(cuda):
                       for a in part) + state[2].nbytes
     fit_bytes = t.indices.nbytes + t.nnz * 4 + 4
     assert res.h2d_bytes == state_bytes + fit_bytes
+
+
+def _graph_case(cuda):
+    t = random_sparse((300, 40, 120, 9), 30_000, seed=50,
+                      distribution="powerlaw")
+    return t, make_plan(t, 1, device=cuda)
+
+
+def _assert_close_results(got, want):
+    """Fits to 1e-6 and factors and weights to 1e-5, relative."""
+    np.testing.assert_allclose(got.fits, want.fits, rtol=1e-6, atol=0)
+    np.testing.assert_allclose(got.weights, want.weights, rtol=1e-5, atol=0)
+    for a, b in zip(got.factors, want.factors):
+        np.testing.assert_allclose(a, b, rtol=0,
+                                   atol=1e-5 * float(np.abs(b).max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method,backend", [
+    ("cp", "slab"), ("nncp", "slab"), ("cp", "segment")])
+def test_replayed_sweeps_equal_eager_sweeps_on_card(cuda, method, backend):
+    """A held plan's first call runs its 7 sweeps eagerly, captures the
+    sweep (one slab call per mode, counted as a capture) and replays it
+    once, which launches the kernel once per mode; later calls replay it,
+    count the replayed launches and equal the eager calls (no plan) from
+    the same starts, with the same host reads.  Two calls in a row from other
+    starts catch a static buffer not refreshed or a fit not copied out.
+    On an H100 the replayed and eager results of the slab backend came
+    out bitwise equal (cp and nncp, ranks 8 and 32); the segment
+    backend's ``index_add_`` sums in no fixed order on either path."""
+    from repro_torch.core import als_device
+
+    t, plan = _graph_case(cuda)
+    kw = dict(n_iters=7, check_every=3, tol=-1.0, method=method,
+              backend=backend)
+    slab = backend == "slab"
+    before = ks.LAUNCHES["mttkrp_slab"], ks.CAPTURES["mttkrp_slab"]
+    first = cpd_als(t, 8, plan=plan, seed=1, **kw)
+    assert first.graph_sweeps == 0
+    assert (ks.LAUNCHES["mttkrp_slab"] - before[0],
+            ks.CAPTURES["mttkrp_slab"] - before[1]) == (
+        (8 * t.nmodes, t.nmodes) if slab else (0, 0))
+    for seed in (2, 3):
+        start = als_device.init_state_host(t.shape, 8, seed)
+        if method == "nncp":
+            start = als_device.state_from_factors(
+                [np.abs(F) + 0.01 for F in start[0]])
+        eager = cpd_als(t, 8, init_state=start, **kw)
+        before = ks.LAUNCHES["mttkrp_slab"], ks.CAPTURES["mttkrp_slab"]
+        replayed = cpd_als(t, 8, plan=plan, init_state=start, **kw)
+        assert (ks.LAUNCHES["mttkrp_slab"] - before[0],
+                ks.CAPTURES["mttkrp_slab"] - before[1]) == (
+            (7 * t.nmodes, 0) if slab else (0, 0))
+        assert replayed.graph_sweeps == replayed.iters == 7
+        assert replayed.host_syncs == eager.host_syncs == 4
+        if slab:
+            _assert_close_results(replayed, eager)
+        else:   # as the main path's slab and segment fits are held
+            np.testing.assert_allclose(replayed.fits, eager.fits, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_failed_window_reruns_eagerly_on_card(cuda):
+    """A gram that is not positive definite fails the first window's
+    Cholesky on the graph path: the window reruns eagerly from its start
+    with the rescue and the call equals the eager call."""
+    from repro_torch.core import als_device
+
+    t, plan = _graph_case(cuda)
+    kw = dict(n_iters=6, check_every=3, tol=-1.0)
+    cpd_als(t, 8, plan=plan, **kw)
+    factors, grams, weights = als_device.init_state_host(t.shape, 8, 5)
+    grams = list(grams)
+    grams[1] = -np.eye(8, dtype=np.float32)
+    start = (factors, tuple(grams), weights)
+    eager = cpd_als(t, 8, init_state=start, **kw)
+    replayed = cpd_als(t, 8, plan=plan, init_state=start, **kw)
+    assert eager.host_syncs == replayed.host_syncs == 4
+    assert replayed.graph_sweeps == 3
+    _assert_close_results(replayed, eager)
+
+
+@pytest.mark.cuda
+def test_replayed_spans_hold_their_kernels_on_card(cuda):
+    """Under ``torch.profiler`` each replay runs inside its span: the
+    kernels of the replayed graphs count in the spans' device time, as
+    the eager launches do."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t, plan = _graph_case(cuda)
+    cpd_als(t, 8, plan=plan, n_iters=4, check_every=2, tol=-1.0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        res = cpd_als(t, 8, plan=plan, n_iters=4, check_every=2, tol=-1.0)
+        torch.cuda.synchronize(cuda)
+    assert res.graph_sweeps == 4
+    device, count = {}, {}
+    for e in prof.events():
+        if e.name in ("als.mttkrp", "als.update", "als.fit"):
+            device[e.name] = device.get(e.name, 0) + e.device_time_total
+            count[e.name] = count.get(e.name, 0) + 1
+    assert count == {"als.mttkrp": 4 * t.nmodes, "als.update": 4 * t.nmodes,
+                     "als.fit": 4}
+    assert all(v > 0 for v in device.values()), device
+
+
+@pytest.mark.cuda
+def test_dropping_the_plan_frees_its_graphs_on_card(cuda):
+    """The graphs live on the plan: once the plan goes, the card holds what
+    it held before the plan (the BLAS workspaces dropped first, since a
+    capture drops them), and the pool that ``graph_pool_bytes`` counts,
+    reserved and not allocated while the plan lives, goes back."""
+    torch.cuda.synchronize(cuda)
+    torch._C._cuda_clearCublasWorkspaces()
+    gc.collect()
+    level = torch.cuda.memory_allocated(cuda)
+    t, plan = _graph_case(cuda)
+    for _ in range(2):
+        res = cpd_als(t, 8, plan=plan, n_iters=4, check_every=2, tol=-1.0)
+    assert res.graph_sweeps == 4 and len(plan._graphs) == 1
+    torch.cuda.synchronize(cuda)
+    assert torch.cuda.memory_allocated(cuda) > level
+    pool = plan.graph_pool_bytes
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved(cuda)
+    assert 0 < pool <= reserved
+    del plan, res
+    gc.collect()
+    torch.cuda.synchronize(cuda)
+    torch._C._cuda_clearCublasWorkspaces()
+    assert torch.cuda.memory_allocated(cuda) == level
+    torch.cuda.empty_cache()
+    assert reserved - torch.cuda.memory_reserved(cuda) >= pool
