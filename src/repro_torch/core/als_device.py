@@ -6,7 +6,8 @@ normal-equations solve, column normalization) and the fit -- runs on the
 device with the state carried there.  A ``check_every`` window of sweeps
 is queued without any host read; the host reads once per window (the
 last fit and a solve-health flag, in one transfer) and once at the end.
-``CPDResult.host_syncs`` counts them.
+``CPDResult.host_syncs`` counts them.  One loop, ``_run_windows``, runs
+the windows of this engine and of ``core.distributed``'s.
 
 The reference guards each solve with ``lax.cond(all finite)`` and a pinv
 rescue.  Here the solve reports, on the device, whether its
@@ -61,8 +62,9 @@ about a hundred a sweep.  Or, where ``uses_graphs`` holds (a card, a
 plan the caller holds, a method whose sweep reads nothing on the host),
 as replays of CUDA graphs captured once per plan (``SweepGraphs``): one
 graph per span below, 2N + 1 replays a sweep.  Both open their spans
-through ``issue_sweep``.  The arithmetic, the kernels, their launch
-shapes and the host read a window are the same either way;
+through ``issue_sweep``, a window through ``_EagerWindows`` or
+``_ReplayWindows``.  The arithmetic, the kernels, their launch shapes
+and the host read a window are the same either way;
 ``CPDResult.graph_sweeps`` counts the sweeps replayed.
 
 Spans (``obs.trace``, in a Tracer and a recording ``torch.profiler``):
@@ -696,7 +698,7 @@ def uses_graphs(device, caller_plan: bool, method: str) -> bool:
     over the plan's later calls), and for a method whose sweep reads
     nothing on the host (the folded fit: not the masked method's weighted
     fit and valued MTTKRP).  Mesh calls never reach ``cpd_als_fused``
-    (``core.distributed`` runs its own ``dist_block`` windows), so they
+    (``core.distributed`` runs eager ``dist_block`` windows), so they
     stay eager."""
     if torch.device(device).type != "cuda" or not caller_plan:
         return False
@@ -882,24 +884,26 @@ def sweep_trace_stats():
     return {"blocks": s["blocks"], "traces": s["traces"]}
 
 
-def _collect_mode_data(plan: MTTKRPPlan, backend: str, rank: int):
-    """Per-mode device arrays (cached on the plan) + static slab tiling."""
+def _collect_mode_data(plan: MTTKRPPlan, backend: str, rank: int,
+                       structural: bool = False):
+    """Per-mode device arrays (cached on the plan), value-baked or
+    ``structural`` (``collect_structural_mode_data``), and the slab
+    tiling (None off the slab backend)."""
     N = plan.tensor.nmodes
-    if backend == "segment":
-        return tuple(plan.device_arrays(d) for d in range(N)), None
-    if backend == "slab":
-        datas, metas = [], []
-        for d in range(N):
-            packed = plan.packed(d)
-            mp = plan.mode_plan(d, rank)    # core.plan decides rank_block
-            datas.append(plan.device_packed(d))
-            metas.append((packed.num_row_blocks, packed.block_rows,
-                          packed.tile, mp.rank_block))
-        return tuple(datas), tuple(metas)
     if backend == "coo":
         coo = plan.device_coo()
-        return tuple(coo for _ in range(N)), None
-    raise ValueError(f"unknown backend {backend!r}")
+        return tuple(coo[:1] if structural else coo for _ in range(N)), None
+    if backend not in ("slab", "segment"):
+        raise ValueError(f"unknown backend {backend!r}")
+    if structural:
+        datas = tuple(plan.device_structural(d, backend) for d in range(N))
+    elif backend == "slab":
+        datas = tuple(plan.device_packed(d) for d in range(N))
+    else:
+        datas = tuple(plan.device_arrays(d) for d in range(N))
+    metas = (tuple(plan.slab_meta(d, rank) for d in range(N))
+             if backend == "slab" else None)
+    return datas, metas
 
 
 def collect_structural_mode_data(plan: MTTKRPPlan, backend: str, rank: int):
@@ -907,20 +911,7 @@ def collect_structural_mode_data(plan: MTTKRPPlan, backend: str, rank: int):
     structural layout arrays plus the canonical->layout permutation (and
     the layout->slab scatter for slab), no baked values.  The masked
     method collects through here."""
-    N = plan.tensor.nmodes
-    if backend == "slab":
-        metas = []
-        for d in range(N):
-            packed = plan.packed(d)
-            metas.append((packed.num_row_blocks, packed.block_rows,
-                          packed.tile, plan.mode_plan(d, rank).rank_block))
-        return (tuple(plan.device_structural(d, backend) for d in range(N)),
-                tuple(metas))
-    if backend == "segment":
-        return tuple(plan.device_structural(d, backend) for d in range(N)), None
-    if backend == "coo":
-        return tuple((plan.device_coo()[0],) for _ in range(N)), None
-    raise ValueError(f"unknown backend {backend!r}")
+    return _collect_mode_data(plan, backend, rank, structural=True)
 
 
 def init_state_host(tensor_shape, rank: int, seed: int):
@@ -937,6 +928,17 @@ def init_state_host(tensor_shape, rank: int, seed: int):
     grams = tuple(F.T @ F for F in factors)
     weights = np.ones((rank,), np.float32)
     return (factors, grams, weights)
+
+
+def _initial_host_state(spec, tensor_shape, rank: int, seed: int,
+                        init_state=None):
+    """A call's host start: the caller's ``init_state``, else the method's
+    seeded init, else ``init_state_host``'s."""
+    if init_state is not None:
+        return init_state
+    if spec is not None and spec.init_state_host is not None:
+        return spec.init_state_host(tensor_shape, rank, seed)
+    return init_state_host(tensor_shape, rank, seed)
 
 
 def init_state(tensor_shape, rank: int, seed: int, device="cuda"):
@@ -982,6 +984,90 @@ def _nbytes(arrays) -> int:
     if isinstance(arrays, torch.Tensor):
         return arrays.nbytes
     return sum(_nbytes(a) for a in arrays)
+
+
+# ---------------------------------------------------------------------------
+# Window loop
+# ---------------------------------------------------------------------------
+
+
+def _run_windows(runner, tol: float, read, span, label):
+    """The windows of a call, window ``b`` of ``k`` sweeps
+    (``runner.lengths``) in ``span(b, k)``: ``runner.window(k) -> (fits,
+    ok)``, one host sync ``read(last fit, ok) -> (fit, healthy)``, and if
+    not healthy ``runner.rescue(k) -> fits`` and a second read.  Returns
+    ``(fits per window on the device, sweeps run, host syncs)``."""
+    fits, it, host_syncs, last_fit = [], 0, 0, -np.inf
+    for b, k in enumerate(runner.lengths):
+        with span(b, k):
+            fits_blk, ok = runner.window(k)
+            f, healthy = read(fits_blk[-1], ok)
+            host_syncs += 1
+            if not healthy:
+                fits_blk = runner.rescue(k)
+                f, _ = read(fits_blk[-1], None)
+                host_syncs += 1
+        fits.append(fits_blk)
+        it += k
+        if label is not None:
+            print(f"  ALS iter {it:3d}: fit={f:.6f} ({label})")
+        if abs(f - last_fit) < tol:
+            break
+        last_fit = f
+    return fits, it, host_syncs
+
+
+class _EagerWindows:
+    """Windows of ``check_every`` sweeps, then the rest, run eagerly by
+    ``block(k)``, the window function of each length, built up front;
+    ``rescue`` reruns the last from ``start``."""
+
+    graph_sweeps = 0
+
+    def __init__(self, block, n_iters, check_every, state, mode_data_all,
+                 fit_data):
+        full, rem = divmod(n_iters, check_every)
+        self.lengths = [check_every] * full + ([rem] if rem else [])
+        self._blocks = {k: block(k) for k in dict.fromkeys(self.lengths)}
+        self._data = (mode_data_all, fit_data)
+        self.state = state
+
+    def window(self, k: int):
+        self.start = self.state
+        self.state, fits, ok = self._blocks[k](self.start, *self._data)
+        return fits, ok
+
+    def rescue(self, k: int):
+        self.state, fits, _ = self._blocks[k](self.start, *self._data,
+                                              rescue=True)
+        return fits
+
+
+class _ReplayWindows:
+    """Windows replayed from a plan's ``SweepGraphs`` in the spans of
+    ``tr``; ``eager`` reruns a failed one from a copy of its start, and
+    its sweeps do not count as replayed."""
+
+    def __init__(self, graphs: SweepGraphs, eager: _EagerWindows,
+                 norm_x_sq, tr):
+        graphs.norm_x_sq.copy_(norm_x_sq)
+        self._graphs, self._eager, self._tr = graphs, eager, tr
+        self.lengths, self.graph_sweeps = eager.lengths, 0
+
+    @property
+    def state(self):
+        return self._graphs.state()
+
+    def window(self, k: int):
+        self._eager.start = self._graphs.window_start()
+        self.graph_sweeps += k
+        return self._graphs.run_window(k, self._tr)
+
+    def rescue(self, k: int):
+        fits = self._eager.rescue(k)
+        self._graphs.load(self._eager.state)
+        self.graph_sweeps -= k
+        return fits
 
 
 # ---------------------------------------------------------------------------
@@ -1049,13 +1135,9 @@ def cpd_als_fused(
                     f"(e.g. 'masked'), got method={method!r}")
             weights = normalize_entry_weights(
                 validate_entry_weights(tensor.nnz, weights))
-        if init_state is not None:
-            host_state = init_state
-        elif spec is not None and spec.init_state_host is not None:
-            host_state = spec.init_state_host(tensor.shape, rank, seed)
-        else:
-            host_state = init_state_host(tensor.shape, rank, seed)
-        state = state_from_reference(*host_state, device=dev)
+        state = state_from_reference(
+            *_initial_host_state(spec, tensor.shape, rank, seed, init_state),
+            device=dev)
         h2d_bytes = _nbytes(state)
         solver = resolve_solver(solver, dev)
 
@@ -1074,14 +1156,15 @@ def cpd_als_fused(
             elif plan.device != dev:
                 raise ValueError(
                     f"plan lives on {plan.device}, run asked for {dev}")
-            collect = (collect_structural_mode_data if structural
-                       else _collect_mode_data)
-            mode_data_all, slab_meta = collect(plan, backend, rank)
-        shapes = tuple(int(s) for s in tensor.shape)
-        graphs_key = ((backend, N, rank, shapes, slab_meta, solver, method)
-                      if graphed else None)
-        graphs = plan._graphs.get(graphs_key) if graphed else None
-        if graphs is not None:
+            mode_data_all, slab_meta = _collect_mode_data(plan, backend, rank,
+                                                          structural)
+        # The sweep's key: its window functions' arguments but the window
+        # length, and the key of the plan's captured graphs.
+        key = (backend, N, rank, tuple(int(s) for s in tensor.shape),
+               slab_meta, solver, method)
+        graphs = plan._graphs.get(key) if graphed else None
+        replay = graphs is not None
+        if replay:
             # The state moves into the graphs' buffers before the fit
             # data's upload, so the call holds one copy of it there.
             graphs.load(state)
@@ -1093,64 +1176,29 @@ def cpd_als_fused(
                 tensor, dev, None if plan is None or plan.tensor is not tensor
                 else plan.staged_fit_data())
         h2d_bytes += _nbytes(fit_data)
-        if graphs is not None:
-            graphs.norm_x_sq.copy_(fit_data[-1])
-
-        n_blocks, rem = divmod(n_iters, check_every)
-        sweep_k = _build_sweep_block(backend, N, rank, shapes, slab_meta,
-                                     solver, check_every,
-                                     method) if n_blocks else None
-        sweep_rem = _build_sweep_block(backend, N, rank, shapes, slab_meta,
-                                       solver, rem, method) if rem else None
+        runner = _EagerWindows(
+            lambda k: _build_sweep_block(*key[:-1], k, method), n_iters,
+            check_every, state, mode_data_all, fit_data)
+        if replay:
+            runner = _ReplayWindows(graphs, runner, fit_data[-1], tr)
         prep.set(h2d_bytes=h2d_bytes)
 
-    fits_dev: list = []
-    host_syncs = 0
-    graph_sweeps = 0
-    last_fit = -np.inf
-    it = 0
-    for b in range(n_blocks + (1 if rem else 0)):
-        k = check_every if b < n_blocks else rem
-        fn = sweep_k if b < n_blocks else sweep_rem
+    fits_dev, it, host_syncs = _run_windows(
+        runner, tol,
+        # A window's one host read, one transfer: the last fit and, where
+        # the method solves, the solve flag.
+        lambda fit, ok: ((float(fit), True) if ok is None else
+                         torch.stack([fit, ok.to(fit.dtype)]).tolist()),
         # A host span per window (queueing and its host read) when tracing.
-        with (obs_trace.NULL if tr is None else
-              tr.span("als.window", cat="als", backend=backend,
-                      method=method, window=b, sweeps=k,
-                      graph=graphs is not None)):
-            if graphs is None:
-                start = state
-                state, fits_blk, ok = fn(start, mode_data_all, fit_data)
-            else:
-                start = graphs.window_start()
-                fits_blk, ok = graphs.run_window(k, tr)
-            # The only in-window host sync: the last fit and the solve flag.
-            if ok is None:
-                f, healthy = float(fits_blk[-1]), True
-            else:
-                f, healthy = torch.stack(
-                    [fits_blk[-1], ok.to(fits_blk.dtype)]).tolist()
-            host_syncs += 1
-            if not healthy:
-                state, fits_blk, _ = fn(start, mode_data_all, fit_data,
-                                        rescue=True)
-                f = float(fits_blk[-1])
-                host_syncs += 1
-                if graphs is not None:
-                    graphs.load(state)
-            elif graphs is not None:
-                graph_sweeps += k
-        fits_dev.append(fits_blk)
-        it += k
-        if verbose:
-            print(f"  ALS iter {it:3d}: fit={f:.6f} ({method}/fused)")
-        if abs(f - last_fit) < tol:
-            break
-        last_fit = f
+        lambda b, k: (obs_trace.NULL if tr is None else
+                      tr.span("als.window", cat="als", backend=backend,
+                              method=method, window=b, sweeps=k,
+                              graph=replay)),
+        f"{method}/fused" if verbose else None)
 
     with obs_trace.NULL if tr is None else tr.span("cpd.finish", cat="cpd"):
         host_syncs += 1                         # final materialization
-        if graphs is not None:
-            state = graphs.state()
+        state = runner.state
         fits = torch.cat(fits_dev).tolist() if fits_dev else []
         result = CPDResult(
             factors=[F.cpu().numpy() for F in state[0]],
@@ -1163,14 +1211,13 @@ def cpd_als_fused(
             engine="fused",
             method=method,
             h2d_bytes=h2d_bytes,
-            graph_sweeps=graph_sweeps,
+            graph_sweeps=runner.graph_sweeps,
         )
-    if graphed and graphs is None:
+    if graphed and not replay:
         # The capture, after the call's eager run and with its fit data
         # and fits released: the plan's first call of this rank and method.
-        norm_x_sq, fit_data = fit_data[-1], None
-        plan._graphs[graphs_key] = SweepGraphs(
-            build_sweep_steps(backend, N, rank, shapes, slab_meta, solver,
-                              method),
-            mode_data_all, state, norm_x_sq, check_every)
+        norm_x_sq = fit_data[-1]
+        fit_data = fits_dev = runner = None
+        plan._graphs[key] = SweepGraphs(build_sweep_steps(*key), mode_data_all,
+                                        state, norm_x_sq, check_every)
     return result

@@ -38,7 +38,6 @@ coordinates and sums the residual mass of the weighted fit.
 from __future__ import annotations
 
 import dataclasses
-import functools
 
 import numpy as np
 import torch
@@ -52,10 +51,10 @@ from ..launch.mesh import AXIS, Mesh, make_mesh
 from ..obs import clock as obs_clock
 from ..obs import trace as obs_trace
 from . import plan as plan_mod
-from .als_device import (_build_sweep_block, _method_spec,
+from .als_device import (_build_sweep_block, _EagerWindows,
+                         _initial_host_state, _method_spec, _run_windows,
                          normalize_entry_weights, resolve_solver,
                          validate_entry_weights)
-from .als_device import init_state_host as _default_init_state_host
 from .coo import SparseTensor
 from .cpd import CPDResult
 from .layout import build_mode_layout
@@ -325,54 +324,29 @@ def cpd_als_distributed(
     check_every = max(1, int(check_every))
     solver = resolve_solver(solver, mesh.device)
 
-    if init_state is not None:
-        host_state = init_state
-    elif spec is not None and spec.init_state_host is not None:
-        host_state = spec.init_state_host(tensor.shape, rank, seed)
-    else:
-        host_state = _default_init_state_host(tensor.shape, rank, seed)
-    state = state_from_reference(*host_state, device=mesh.device)
+    state = state_from_reference(
+        *_initial_host_state(spec, tensor.shape, rank, seed, init_state),
+        device=mesh.device)
     collectives = resolve_collectives(plan, collective)
     mode_data, fit_data = _collect_dist_data(plan, collectives)
-
-    n_blocks, rem = divmod(n_iters, check_every)
-    block = functools.partial(_build_sweep_block, "segment", N, rank, shapes,
-                              None, solver)
-    fn_k = block(check_every, method, mesh, collectives) if n_blocks else None
-    fn_rem = block(rem, method, mesh, collectives) if rem else None
+    runner = _EagerWindows(
+        lambda k: _build_sweep_block("segment", N, rank, shapes, None, solver,
+                                     k, method, mesh, collectives),
+        n_iters, check_every, state, mode_data, fit_data)
 
     shard_nnz = [int(m.nnz_per_dev) for m in plan.modes]
-    fits_dev: list = []
-    host_syncs = 0
-    last_fit = -np.inf
-    it = 0
     tr = obs_trace.sink()
-    for b in range(n_blocks + (1 if rem else 0)):
-        k = check_every if b < n_blocks else rem
-        fn = fn_k if b < n_blocks else fn_rem
-        start = state
-        with (obs_trace.NULL if tr is None else
-              tr.span("dist.window", cat="dist", method=method,
-                      kappa=mesh.size, window=b, sweeps=k,
-                      shard_nnz=shard_nnz)):
-            state, fits_blk, ok = fn(start, mode_data, fit_data)
-            f, healthy = window_read(mesh, fits_blk[-1], ok)
-            host_syncs += 1
-            if not healthy:
-                state, fits_blk, _ = fn(start, mode_data, fit_data,
-                                        rescue=True)
-                f, _ = window_read(mesh, fits_blk[-1], None)
-                host_syncs += 1
-        fits_dev.append(fits_blk)
-        it += k
-        if verbose and mesh.rank == 0:
-            print(f"  ALS iter {it:3d}: fit={f:.6f} (distributed)")
-        if abs(f - last_fit) < tol:
-            break
-        last_fit = f
+    fits_dev, it, host_syncs = _run_windows(
+        runner, tol, lambda fit, ok: window_read(mesh, fit, ok),
+        lambda b, k: (obs_trace.NULL if tr is None else
+                      tr.span("dist.window", cat="dist", method=method,
+                              kappa=mesh.size, window=b, sweeps=k,
+                              shard_nnz=shard_nnz)),
+        "distributed" if verbose and mesh.rank == 0 else None)
 
     host_syncs += 1                             # final materialization
     fits = torch.cat(fits_dev).tolist() if fits_dev else []
+    state = runner.state
     return CPDResult(
         factors=[F.cpu().numpy() for F in state[0]],
         weights=state[2].cpu().numpy().astype(np.float64),

@@ -156,6 +156,14 @@ class MTTKRPPlan:
             self.layouts[mode], rank, block_rows=p.block_rows, tile=p.tile,
             smem_limit=shared_memory_per_block(self.device))
 
+    def slab_meta(self, mode: int, rank: int) -> tuple[int, int, int, int]:
+        """The slab kernel's static tiling of ``mode`` at ``rank``:
+        ``(num_row_blocks, block_rows, tile, rank_block)``, the packing's
+        and the mode plan's."""
+        packed = self.packed(mode)
+        return (packed.num_row_blocks, packed.block_rows, packed.tile,
+                self.mode_plan(mode, rank).rank_block)
+
     def device_arrays(self, mode: int) -> tuple:
         """Layout arrays on the plan's device (cached):
         ``(idx, rows, vals, row_perm)``."""
@@ -305,9 +313,7 @@ def mttkrp(
                                               lay.num_rows)
         return unrelabel_rows(out_rel, row_perm)
     if backend == "slab":
-        packed = plan.packed(mode)
-        rank_block = plan.mode_plan(mode, int(in_factors[0].shape[1])).rank_block
-        meta = (packed.num_row_blocks, packed.block_rows, packed.tile, rank_block)
+        meta = plan.slab_meta(mode, int(in_factors[0].shape[1]))
         return slab_backend(plan.device_packed(mode),
                             in_factors, lay.num_rows, meta)
     if backend == "coo":

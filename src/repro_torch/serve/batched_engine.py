@@ -305,9 +305,8 @@ class BatchedEngine:
                 per_lane.append((coo,) * N)
                 continue
             plan = make_plan(t, self.kappa, device=dev)
-            collect = (als_device.collect_structural_mode_data if structural
-                       else als_device._collect_mode_data)
-            per_lane.append(collect(plan, self.backend, self.rank)[0])
+            per_lane.append(als_device._collect_mode_data(
+                plan, self.backend, self.rank, structural)[0])
         return tuple([lane[d] for lane in per_lane] for d in range(N))
 
     def _stack_batch(self, tensors: list[SparseTensor], nnz_cap: int,

@@ -20,6 +20,8 @@ from repro_torch.convert import state_from_reference, state_to_host
 from repro_torch.core import als_device
 from repro_torch.core.coo import SparseTensor, low_rank_sparse
 from repro_torch.core.cpd import cpd_als
+from repro_torch.core.distributed import cpd_als_distributed
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.obs import trace as obs_trace
 
 FIT_ATOL = 1e-4
@@ -135,12 +137,21 @@ def test_window_cache_reused_for_same_shape():
     assert after["hits"] == before["hits"] + 1
 
 
-def test_rescue_window_reruns_with_pinv(monkeypatch):
+def _one_rank_distributed(t, rank, **kw):
+    mesh = make_mesh((1,), ("sm",), device="cpu")
+    return cpd_als_distributed(t, rank, mesh, **kw)
+
+
+@pytest.mark.parametrize("engine", [cpd_als, _one_rank_distributed],
+                         ids=["fused", "distributed"])
+def test_rescue_window_reruns_with_pinv(monkeypatch, engine):
     """A window whose solve reports failure is run again from its starting
     state with the pinv rescue: one extra host sync, and (the system being
-    well conditioned) the same fits as the plain solve."""
+    well conditioned) the same fits as the plain solve.  The fused and the
+    distributed engine share the window loop that does it."""
     _, t = _tensors((17, 12, 9), 500, 3, seed=6)
-    plain = cpd_als(t, 3, n_iters=4, check_every=2, tol=-1.0, device="cpu")
+    kw = dict(n_iters=4, check_every=2, tol=-1.0, device="cpu")
+    plain = engine(t, 3, **kw)
     real = als_device._build_solver
     calls = []
 
@@ -157,9 +168,10 @@ def test_rescue_window_reruns_with_pinv(monkeypatch):
     monkeypatch.setattr(als_device, "_build_solver", failing_once)
     als_device._build_sweep_block.cache_clear()
     try:
-        res = cpd_als(t, 3, n_iters=4, check_every=2, tol=-1.0, device="cpu")
+        res = engine(t, 3, **kw)
     finally:
         als_device._build_sweep_block.cache_clear()
+    assert calls
     assert res.host_syncs == plain.host_syncs + 1
     np.testing.assert_allclose(res.fits, plain.fits, atol=FIT_ATOL)
 
